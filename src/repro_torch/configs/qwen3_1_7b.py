@@ -1,0 +1,18 @@
+"""qwen3-1.7b [dense] — qk_norm, GQA. [hf:Qwen/Qwen3-8B family; 1.7B sizing]"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=6144,
+    vocab_size=151_936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+    source="hf:Qwen/Qwen3-8B (Qwen3 family card, 1.7B variant)",
+).validate()

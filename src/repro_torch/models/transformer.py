@@ -1,0 +1,175 @@
+"""Block-stacked dense transformer and fragment execution.
+
+Parameters keep the JAX package's leading layer axis (``params["blocks"]``
+holds one tensor per weight with shape ``(L, ...)``), so a fragment's
+blocks ``[start, end)`` are views of the stacked tensors, and
+``lax.scan`` over that axis becomes a Python loop. Re-alignment (the
+paper's technique) cuts the stack at block granularity:
+:func:`fragment_forward` executes blocks ``[start, end)`` on externally
+supplied hidden states — the substrate operation Graft's alignment and
+shared stages run.
+
+Only the ``dense`` family is ported so far: [ln -> GQA attn] +
+[ln -> (swiglu|gelu) mlp].
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as nn
+from repro_torch.models.layers import torch_dtype
+
+Tensor = torch.Tensor
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Raise rather than fall back to the CPU
+    when a CUDA device is asked for and there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return dev
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense "
+            "only)")
+
+
+def _layer(blocks: dict, i: int) -> dict:
+    """The i-th layer's params out of a stacked-blocks dict (views)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in blocks.items()}
+
+
+def slice_blocks(blocks: dict, start: int, end: int) -> dict:
+    """Blocks ``[start, end)`` of a stacked-blocks dict (views)."""
+    return {k: slice_blocks(v, start, end) if isinstance(v, dict)
+            else v[start:end] for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+    """Random weights from a seeded ``torch.Generator`` on ``device``
+    (None = the card). Block weights are stacked along a leading layer
+    axis of length ``cfg.n_layers``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    dt = torch_dtype(cfg.dtype)
+    L = (cfg.n_layers,)
+    p: dict = {
+        "embed": nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),
+        "final_norm": nn.init_norm(cfg, dev),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = nn.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
+    p["blocks"] = {"ln1": nn.init_norm(cfg, dev, L),
+                   "ln2": nn.init_norm(cfg, dev, L),
+                   "attn": attn.init_attention(gen, cfg, L),
+                   "mlp": nn.init_mlp(gen, cfg, L)}
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence block application (prefill / fragments)
+# ---------------------------------------------------------------------------
+
+def block_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
+                  window: int = 0, causal: bool = True,
+                  seg_ids: Optional[Tensor] = None,
+                  positions: Optional[Tensor] = None) -> Tensor:
+    """One dense block, full sequence.
+
+    seg_ids/positions (B, S) carry the sequence-packed layout
+    (``models.packed``): attention is masked to segment boundaries and
+    RoPE restarts per segment. None = the ordinary unpacked batch.
+    """
+    h = nn.apply_norm(p["ln1"], cfg, x)
+    x = x + attn.attn_forward(p["attn"], cfg, h, window=window,
+                              causal=causal, positions=positions,
+                              seg_ids=seg_ids)
+    h = nn.apply_norm(p["ln2"], cfg, x)
+    return x + nn.apply_mlp(p["mlp"], cfg, h)
+
+
+def stack_forward(blocks: dict, cfg: ModelConfig, x: Tensor, *,
+                  window: int = 0, causal: bool = True,
+                  seg_ids: Optional[Tensor] = None,
+                  positions: Optional[Tensor] = None) -> Tensor:
+    """Apply every layer of ``blocks`` (leading layer axis) in order."""
+    n = next(iter(blocks["attn"].values())).shape[0]
+    for i in range(n):
+        x = block_forward(_layer(blocks, i), cfg, x, window=window,
+                          causal=causal, seg_ids=seg_ids,
+                          positions=positions)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Model facade
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    return params["embed"][tokens.long()]
+
+
+def unembed(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
+    x = nn.apply_norm(params["final_norm"], cfg, x)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    """Full forward: tokens (B, S) -> logits (B, S, vocab)."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, tokens)
+    x = stack_forward(params["blocks"], cfg, x, window=cfg.sliding_window)
+    return unembed(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Fragment execution (the substrate operation for DNN re-alignment)
+# ---------------------------------------------------------------------------
+
+def n_fragment_units(cfg: ModelConfig) -> int:
+    """Number of re-partitionable units ("layers" in Graft's sense)."""
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.vision.cross_attn_every
+    return cfg.n_layers
+
+
+def fragment_forward(params: dict, cfg: ModelConfig, hidden: Tensor,
+                     start: int, end: int) -> Tensor:
+    """Run blocks [start, end) on hidden states — Graft stage execution."""
+    _check_family(cfg)
+    return stack_forward(slice_blocks(params["blocks"], start, end), cfg,
+                         hidden, window=cfg.sliding_window)
+
+
+def run_fragment(params: dict, cfg: ModelConfig, inputs: Tensor,
+                 start: int, end: int, *,
+                 extras: Optional[dict] = None) -> Tensor:
+    """Fragment execution including the embed (start==0) and head (end==L)
+    boundary work — what a serving instance actually runs.
+
+    ``extras`` carries the vlm/audio families' per-request inputs; the
+    dense family takes none and ignores it, as the JAX package does."""
+    L = n_fragment_units(cfg)
+    x = inputs
+    if start == 0:
+        x = embed_tokens(params, cfg, inputs)
+    x = fragment_forward(params, cfg, x, start, end)
+    if end == L:
+        x = unembed(params, cfg, x)
+    return x

@@ -1,0 +1,625 @@
+"""Real-execution serving data path: an ExecutionPlan run as PyTorch code.
+
+Each stage pool runs ``run_fragment`` for its block range; requests
+carry real tensors through mobile-part execution -> alignment stage ->
+batched shared stage, exactly the paper's data path. On the card the
+attention inside every fragment is the Hopper kernel
+(``kernels/flash_attention.py``): the segment-masked one for packed pool
+batches, the unsegmented one for the mobile part, the padded fallback
+and the monolithic forward.
+
+Every pool hop crosses a :class:`repro_torch.serving.transport.Transport`
+channel — tensors are framed (length-prefixed msgpack) on the way in and
+out even for the default :class:`InProcessTransport`, so the
+serialization the paper's transmission budget pays for is always on the
+measured path. A payload that arrives at a pool is moved to the pool's
+device.
+
+Pools are keyed by their ``core.plandiff`` identity ``(model, start,
+end)``, so :meth:`GraftExecutor.apply_plan` can transition a *live*
+deployment to a new plan: pools whose block range survives the replan
+keep their queue instead of being rebuilt.
+
+Only the one-shot path is here; the decode slots (paged KV, continuous
+batching, disaggregation) come with the decode slice.
+"""
+from __future__ import annotations
+
+import functools
+import itertools
+import os
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.planner import ExecutionPlan
+from repro_torch.core.placement import MOVE, migrate, place_pools
+from repro_torch.core.plandiff import (diff_plans, plan_pools, PlanDiff,
+                                       PoolSpec)
+from repro_torch.core.repartition import pool_key
+from repro_torch.models import n_fragment_units, resolve_device, run_fragment
+from repro_torch.models.packed import (_packed_forward, is_packable,
+                                       pack_segments)
+from repro_torch.serving.batcher import bucket_size, seq_bucket, token_bucket
+from repro_torch.serving.simulator import _routing
+from repro_torch.serving.telemetry import NULL as NULL_TELEMETRY
+from repro_torch.serving.transport import (Channel, InProcessTransport,
+                                           Transport, error_reply)
+
+Tensor = torch.Tensor
+
+
+@dataclass
+class ServeRequest:
+    client: str
+    tokens: object                       # (S,) int32 numpy array or tensor
+    extras: Optional[dict] = None
+    result: Optional[Tensor] = None      # on the host, as the wire left it
+
+
+class PoolDrainingError(RuntimeError):
+    """Enqueue refused: the pool was retargeted to batch 0 (draining)."""
+
+
+def pool_endpoint(key: tuple) -> str:
+    """Transport endpoint name for a pool identity (model, start, end)."""
+    return f"pool/{key[0]}/{key[1]}-{key[2]}"
+
+
+def _params_device(params: dict) -> torch.device:
+    return params["embed"].device
+
+
+def _extras_sig(extras: Optional[dict]) -> tuple:
+    """Batchability signature of a request's extras: keys AND array
+    shapes/dtypes. Requests batch together only when their extras are
+    layout-compatible — and the compile-count key includes this."""
+    if not extras:
+        return ()
+    return tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                        for k, v in extras.items()))
+
+
+class FragmentInstance:
+    """One stage pool: its fragment program + a batching queue.
+
+    A ``retarget`` to batch 0 puts the pool in *draining* mode: queued
+    work still flushes (at batch 1) but new submissions are refused with
+    :class:`PoolDrainingError`.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, spec: PoolSpec,
+                 *, packed: bool = True, telemetry=None):
+        self.cfg = cfg
+        self.telemetry = telemetry if telemetry is not None \
+            else NULL_TELEMETRY
+        self._m_exec_ms = self.telemetry.histogram("pool/exec_ms")
+        self._m_batch_tokens = self.telemetry.histogram("pool/batch_tokens")
+        self.key = spec.key
+        self.start, self.end = spec.start, spec.end
+        self.batch = spec.batch
+        self.role = spec.role
+        self.draining = spec.batch == 0
+        # sequence-packed ragged execution for batchable families; the
+        # pad-to-bucket path stays the fallback (models.packed.is_packable)
+        self.packed = packed and is_packable(cfg)
+        self._units = n_fragment_units(cfg)
+        self.chips: list = []         # placement binding (the bind op)
+        self._params = params
+        self.device = _params_device(params)
+        self.queue: list = []
+        self.n_batches = 0
+        self.n_compiles = 0
+        self.real_tokens = 0          # payload tokens actually requested
+        self.pad_tokens = 0           # bucket-padding tokens executed
+        self._shapes_seen: set = set()
+
+    def retarget(self, spec: PoolSpec) -> None:
+        """Adopt a new pool shape; the block range is unchanged by
+        construction (same PoolKey). Batch 0 is the drain signal."""
+        if spec.key != self.key:
+            raise ValueError(f"retarget of pool {self.key} to {spec.key}")
+        self.batch = spec.batch
+        self.role = spec.role
+        self.draining = spec.batch == 0
+
+    def submit(self, req: ServeRequest, payload: Tensor):
+        if self.draining:
+            raise PoolDrainingError(
+                f"pool {self.key} is draining (batch=0): enqueue refused")
+        self.queue.append((req, payload.to(self.device)))
+
+    def flush(self):
+        """Process queued requests in batches; returns [(req, output), ...].
+
+        Each chunk is grouped by extras signature: requests with
+        differing extras never share an execution. Packable groups run
+        sequence-packed (payloads concatenate along the token axis, only
+        the tail pads to ``token_bucket``); the rest take the
+        pad-to-bucket path (each payload pads to its ``seq_bucket``,
+        same-shape payloads stack, the batch pads to ``bucket_size`` by
+        replicating the last row). Pad rows/tokens are sliced off before
+        results leave the pool.
+        """
+        out = []
+        step = max(self.batch, 1)
+        while self.queue:
+            chunk = self.queue[:step]
+            del self.queue[:step]
+            groups: dict = {}
+            for req, payload in chunk:
+                groups.setdefault(_extras_sig(req.extras), []).append(
+                    (req, payload))
+            for sig, grp in groups.items():
+                if self.packed and not sig:
+                    out.extend(self._run_packed(grp))
+                else:
+                    out.extend(self._run_padded(sig, grp))
+        return out
+
+    def _call_counted(self, fn, *args, shape_key, **kwargs):
+        """Run a fragment program, counting distinct input shapes.
+
+        PyTorch runs eagerly and keeps no compile cache, so
+        ``n_compiles`` counts first sightings of the full shape key
+        (which includes extras shapes/dtypes) — the JAX package's
+        fallback count, and the number of programs a shape-keyed
+        compiler would build."""
+        if shape_key not in self._shapes_seen:
+            self._shapes_seen.add(shape_key)
+            self.n_compiles += 1
+        return fn(*args, **kwargs)
+
+    def _run_packed(self, grp: list) -> list:
+        """Sequence-packed execution of one extras-free group."""
+        payloads = [p for _, p in grp]
+        lengths = [int(p.shape[0]) for p in payloads]
+        total = sum(lengths)
+        T = token_bucket(total)
+        seg, pos, cu = pack_segments(lengths, T)
+        cat = torch.cat(payloads, dim=0)
+        if T > total:
+            cat = torch.cat([cat, cat.new_zeros((T - total, *cat.shape[1:]))])
+        dev = self.device
+        t0 = time.perf_counter()
+        y = self._call_counted(
+            _packed_forward, self._params, cat[None],
+            torch.from_numpy(seg).to(dev)[None],
+            torch.from_numpy(pos).to(dev)[None], self.start,
+            cfg=self.cfg, depth=self.end - self.start,
+            embed=self.start == 0, head=self.end == self._units,
+            shape_key=("packed", tuple(cat.shape), str(cat.dtype)))
+        self._m_exec_ms.record((time.perf_counter() - t0) * 1e3)
+        self._m_batch_tokens.record(total)
+        self.n_batches += 1
+        self.real_tokens += total
+        self.pad_tokens += T - total
+        return [(req, y[0, int(cu[i]):int(cu[i + 1])])
+                for i, (req, _) in enumerate(grp)]
+
+    def _run_padded(self, sig: tuple, grp: list) -> list:
+        """Pad-to-bucket execution of one extras-signature group, with
+        per-request extras stacked along the batch axis."""
+        by_shape: dict = {}
+        for req, p in grp:
+            S = int(p.shape[0])
+            Sp = seq_bucket(S)
+            by_shape.setdefault((Sp,) + tuple(p.shape[1:]), []).append(
+                (req, p, S))
+        out = []
+        for shp, items in by_shape.items():
+            Sp = shp[0]
+            padded = [torch.cat([p, p.new_zeros((Sp - S, *p.shape[1:]))])
+                      if Sp != S else p for _, p, S in items]
+            n = len(padded)
+            tgt = bucket_size(n, max(self.batch, 1))
+            padded.extend(padded[-1:] * (tgt - n))
+            stacked = torch.stack(padded)
+            extras = self._stack_extras([r.extras for r, _, _ in items], tgt,
+                                        self.device)
+            t0 = time.perf_counter()
+            y = self._call_counted(
+                run_fragment, self._params, self.cfg, stacked, self.start,
+                self.end, extras=extras,
+                shape_key=(tuple(stacked.shape), str(stacked.dtype), sig))
+            self._m_exec_ms.record((time.perf_counter() - t0) * 1e3)
+            real = sum(S for _, _, S in items)
+            self._m_batch_tokens.record(real)
+            self.n_batches += 1
+            self.real_tokens += real
+            self.pad_tokens += tgt * Sp - real
+            out.extend((req, y[i, :S] if Sp != S else y[i])
+                       for i, (req, _, S) in enumerate(items))
+        return out
+
+    @staticmethod
+    def _stack_extras(extras_list: list, tgt: int,
+                      device) -> Optional[dict]:
+        """Stack per-request extras along the batch axis (replicating the
+        last request's extras for batch-bucket pad rows). All entries in
+        a group share one extras signature, so shapes line up."""
+        if not extras_list or not extras_list[0]:
+            return None
+        rows = list(extras_list) + [extras_list[-1]] * (tgt - len(extras_list))
+        return {k: torch.cat([torch.as_tensor(e[k]) for e in rows]).to(device)
+                for k in extras_list[0]}
+
+
+class PoolService:
+    """Server-side adapter: transport messages -> FragmentInstance ops.
+
+    The message vocabulary is the executor<->pool protocol, so local and
+    remote pools are interchangeable behind a channel.
+    """
+
+    def __init__(self, inst: FragmentInstance):
+        self.inst = inst
+        # several channels may reach one pool; the pool is one resource,
+        # so its ops serialize here
+        self._lock = threading.Lock()
+
+    def handle(self, msg: dict) -> dict:
+        try:
+            with self._lock:
+                return self._dispatch(msg)
+        except Exception as e:                       # error crosses the wire
+            return error_reply(e)
+
+    def _enqueue(self, item: dict) -> None:
+        req = ServeRequest(client=item["client"], tokens=None,
+                           extras=item.get("extras") or None)
+        req._rid = item["req_id"]
+        self.inst.submit(req, torch.as_tensor(item["payload"]))
+
+    def _flush_reply(self) -> dict:
+        return {"ok": True,
+                "results": [{"req_id": req._rid, "payload": y}
+                            for req, y in self.inst.flush()]}
+
+    def _dispatch(self, msg: dict) -> dict:
+        op = msg.get("op")
+        inst = self.inst
+        if op == "submit":
+            self._enqueue(msg)
+            return {"ok": True, "queued": len(inst.queue)}
+        if op == "flush":
+            return self._flush_reply()
+        if op == "execute":
+            # batched submit + flush in ONE round trip
+            for it in msg["items"]:
+                self._enqueue(it)
+            return self._flush_reply()
+        if op == "retarget":
+            inst.retarget(PoolSpec(key=tuple(msg["key"]),
+                                   share=msg["share"], batch=msg["batch"],
+                                   n_instances=msg["n_instances"],
+                                   role=msg.get("role", "both")))
+            return {"ok": True}
+        if op == "bind":
+            # placement binding: which chip each of this pool's instances
+            # runs on
+            inst.chips = [int(c) for c in msg["chips"]]
+            return {"ok": True}
+        if op == "stats":
+            tel = inst.telemetry
+            return {"ok": True, "pid": os.getpid(),
+                    "queue_len": len(inst.queue),
+                    "n_batches": inst.n_batches,
+                    "n_compiles": inst.n_compiles,
+                    "real_tokens": inst.real_tokens,
+                    "pad_tokens": inst.pad_tokens,
+                    "packed": inst.packed,
+                    "device": str(inst.device),
+                    "chips": list(inst.chips),
+                    "draining": inst.draining,
+                    "role": inst.role,
+                    "telemetry": tel.snapshot() if tel.enabled else None}
+        raise ValueError(f"unknown pool op {op!r}")
+
+
+class PoolHandle:
+    """Client-side proxy for one stage pool behind a transport channel.
+
+    A per-handle lock serializes channel use so the handle is safe to
+    share between threads; the wire hop measurement in :meth:`submit`
+    reads the channel's last sample inside the same critical section."""
+
+    def __init__(self, key: tuple, channel: Channel):
+        self.key = key
+        self.channel = channel
+        self._lock = threading.Lock()
+
+    def _check(self, reply: dict) -> dict:
+        if not reply.get("ok"):
+            err = reply.get("error", "unknown transport error")
+            if reply.get("etype") == PoolDrainingError.__name__:
+                raise PoolDrainingError(err)
+            raise RuntimeError(f"pool {self.key}: {err}")
+        return reply
+
+    def _call(self, msg: dict) -> dict:
+        with self._lock:
+            reply = self.channel.request(msg)
+        return self._check(reply)
+
+    def submit(self, req_id: int, client: str, payload: Tensor,
+               extras: Optional[dict] = None) -> Optional[tuple]:
+        """Enqueue one payload; returns the measured (nbytes, ms) hop,
+        or None when the channel produced no sample for this request
+        (callers then record nothing)."""
+        msg = {"op": "submit", "req_id": req_id, "client": client,
+               "payload": payload, "extras": extras}
+        with self._lock:
+            reply = self.channel.request(msg)
+            sample = self.channel.stats.samples[-1] \
+                if self.channel.stats.samples else None
+        self._check(reply)
+        if sample is None:
+            return None
+        _, nbytes, ms = sample
+        return nbytes, ms
+
+    def flush(self) -> list:
+        reply = self._call({"op": "flush"})
+        return [(r["req_id"], r["payload"]) for r in reply["results"]]
+
+    def execute(self, items: list) -> list:
+        """Submit a whole batch and flush it in one round trip.
+
+        ``items``: [(req_id, client, payload, extras), ...]. Returns
+        [(req_id, payload), ...] for everything the flush produced."""
+        reply = self._call({"op": "execute", "items": [
+            {"req_id": rid, "client": client, "payload": payload,
+             "extras": extras} for rid, client, payload, extras in items]})
+        return [(r["req_id"], r["payload"]) for r in reply["results"]]
+
+    def retarget(self, spec: PoolSpec) -> None:
+        self._call({"op": "retarget", "key": list(spec.key),
+                    "share": spec.share, "batch": spec.batch,
+                    "n_instances": spec.n_instances, "role": spec.role})
+
+    def bind(self, chips: list) -> None:
+        """Tell the pool which chip each instance is placed on."""
+        self._call({"op": "bind", "chips": [int(c) for c in chips]})
+
+    def stats(self) -> dict:
+        return self._call({"op": "stats"})
+
+    def close(self) -> None:
+        self.channel.close()
+
+
+class GraftExecutor:
+    """Deploys an ExecutionPlan for ONE model, routing every pool hop
+    through ``transport`` (default: in-process loopback with full wire
+    framing). ``device`` (None = the card) is where the pools run; the
+    params must already lie there."""
+
+    def __init__(self, plan: ExecutionPlan, params, cfg: ModelConfig,
+                 transport: Optional[Transport] = None, *,
+                 packed: bool = True, telemetry=None, device=None):
+        self.device = resolve_device(device)
+        have = _params_device(params)
+        if have.type != self.device.type or (
+                self.device.index is not None and have != self.device):
+            raise ValueError(f"params lie on {have}, executor device is "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.packed = packed
+        self.telemetry = telemetry if telemetry is not None \
+            else NULL_TELEMETRY
+        self.transport = transport if transport is not None \
+            else InProcessTransport()
+        self._handles: dict[tuple, PoolHandle] = {}
+        self._fragment_fns: dict[tuple, object] = {}
+        self._rid = itertools.count()
+        self._by_rid: dict[int, ServeRequest] = {}
+        # (client, nbytes, ms) per measured uplink hop, bounded
+        self.uplink: deque = deque(maxlen=65_536)
+        self.stats = {"pools_created": 0, "pools_reused": 0,
+                      "pools_removed": 0, "plan_applies": 0,
+                      "instances_spawned": 0, "instances_retired": 0,
+                      "instances_moved": 0}
+        self.placement = None                 # set by the first _deploy
+        self.last_migrations: list = []       # chip actions of the last apply
+        self._bound: dict[tuple, tuple] = {}  # key -> chips last pushed
+        self._deploy(plan)
+
+    # ------------------------------------------------------------- pools
+    def _spawn_pool(self, spec: PoolSpec) -> PoolHandle:
+        svc = PoolService(FragmentInstance(
+            self.params, self.cfg, spec, packed=self.packed,
+            telemetry=self.telemetry))
+        name = pool_endpoint(spec.key)
+        self.transport.serve(name, svc.handle)
+        return PoolHandle(spec.key, self.transport.connect(name))
+
+    def _spawn_pools(self, specs: list) -> dict:
+        """Create several pools; returns {key: handle}. All-or-nothing:
+        a failed spawn retires the pools already created."""
+        created = {}
+        try:
+            for spec in specs:
+                created[spec.key] = self._spawn_pool(spec)
+        except Exception:
+            for h in created.values():
+                self._retire_pool(h)
+            raise
+        return created
+
+    def _retire_pool(self, handle: PoolHandle) -> None:
+        handle.close()
+        self.transport.stop(pool_endpoint(handle.key))
+
+    def _deploy(self, plan: ExecutionPlan) -> None:
+        pools = plan_pools(plan)
+        if any(sp.role != "both" for sp in pools.values()):
+            raise ValueError("plan declares prefill/decode-role pools; "
+                             "the decode path is not ported yet")
+        self.plan = plan
+        self._pools = pools
+        new_specs = []
+        for key, spec in self._pools.items():
+            if key in self._handles:
+                self._handles[key].retarget(spec)
+            else:
+                new_specs.append(spec)
+        created = self._spawn_pools(new_specs)
+        self._handles.update(created)
+        self.stats["pools_created"] += len(created)
+        self.routes = _routing(plan)
+        self._chains = {
+            client: [self._handles[pool_key(sp.fragment.model, sp)]
+                     for sp in chain]
+            for client, chain in self.routes.items()}
+        if self.placement is None:            # initial deploy: pack fresh
+            self.placement = place_pools(self._pools)
+        self._bind_chips()
+
+    def _bind_chips(self) -> None:
+        """Push the current placement's chip binding to every pool whose
+        chips changed."""
+        for key, handle in self._handles.items():
+            chips = tuple(self.placement.chips_of(key))
+            if self._bound.get(key) == chips:
+                continue
+            handle.bind(list(chips))
+            self._bound[key] = chips
+
+    def apply_plan(self, new_plan: ExecutionPlan) -> PlanDiff:
+        """Transition the live deployment to ``new_plan``. Pools whose
+        (model, start, end) identity survives keep their queue."""
+        new_pools = plan_pools(new_plan)
+        diff = diff_plans(self._pools, new_pools)
+        removed = diff.by_kind("remove")
+        for a in removed:                      # validate before mutating
+            q = int(self._handles[a.key].stats()["queue_len"])
+            if q:
+                raise RuntimeError(
+                    f"cannot remove pool {a.key}: {q} queued requests — "
+                    f"drain before apply_plan()")
+        for a in removed:
+            self._retire_pool(self._handles.pop(a.key))
+            self._bound.pop(a.key, None)
+            self.stats["pools_removed"] += 1
+        self.stats["pools_reused"] += diff.n_kept
+        self.stats["plan_applies"] += 1
+        # transition the chip packing across the diff instead of
+        # re-packing: only the delta spawns/retires/moves
+        self.placement, self.last_migrations = migrate(self.placement, diff)
+        stat_key = {MOVE: "instances_moved", "spawn": "instances_spawned",
+                    "retire": "instances_retired"}
+        for act in self.last_migrations:
+            self.stats[stat_key[act.kind]] += 1
+        self._deploy(new_plan)
+        return diff
+
+    # -------------------------------------------------------------- serve
+    def fragment_fn(self, start: int, end: int):
+        """``run_fragment`` for blocks [start, end), cached — the one place
+        fragment programs outside pools are made (mobile parts here)."""
+        fn = self._fragment_fns.get((start, end))
+        if fn is None:
+            fn = self._fragment_fns[(start, end)] = functools.partial(
+                run_fragment, cfg=self.cfg, start=start, end=end)
+        return fn
+
+    def mobile_part(self, req: ServeRequest, p: int) -> Tensor:
+        """Execute the device-side fragment [0, p) locally (simulated
+        device). Returns the per-request payload: token ids (S,) when
+        p == 0, else the intermediate hidden states (S, d) that cross the
+        network."""
+        toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
+                               device=self.device)[None]     # (1, S)
+        if p == 0:
+            return toks[0]
+        h = self.fragment_fn(0, p)(self.params, inputs=toks,
+                                   extras=req.extras)
+        return h[0]
+
+    def serve(self, requests: list[tuple[ServeRequest, int]]
+              ) -> list[ServeRequest]:
+        """requests: [(req, client_partition_point)]. Batched execution of
+        every stage pool; returns requests with ``result`` filled.
+
+        If a hop fails mid-wave, requests already queued in healthy pools
+        stay queued and tracked — call :meth:`drain` to discard them
+        before the next ``apply_plan``."""
+        # stage 0 submit — this is the uplink hop the paper budgets for
+        stage_of: dict[int, int] = {}        # rid -> index in ITS OWN chain
+        for req, p in requests:
+            payload = self.mobile_part(req, p)
+            rid = next(self._rid)
+            self._by_rid[rid] = req
+            stage_of[rid] = 0
+            chain = self._chains[req.client]
+            sample = chain[0].submit(rid, req.client, payload,
+                                     extras=req.extras)
+            if sample is not None:          # unmeasured hop: record nothing
+                self.uplink.append((req.client, sample[0], sample[1]))
+        # run chains to completion (stages are a DAG of depth <= 2). A
+        # flush can return requests from OTHER chains whose earlier stage
+        # fed this pool — route each result by the request's own recorded
+        # stage, never by the flushing depth.
+        max_depth = max((len(c) for c in self._chains.values()), default=0)
+        for depth in range(max_depth):
+            seen = set()
+            for chain in self._chains.values():
+                if depth >= len(chain) or id(chain[depth]) in seen:
+                    continue
+                seen.add(id(chain[depth]))
+                for rid, y in chain[depth].flush():
+                    req = self._by_rid[rid]
+                    nxt = stage_of[rid] + 1
+                    rchain = self._chains[req.client]
+                    if nxt < len(rchain):
+                        stage_of[rid] = nxt
+                        rchain[nxt].submit(rid, req.client, y,
+                                           extras=req.extras)
+                    else:
+                        req.result = y
+                        del self._by_rid[rid]
+                        del stage_of[rid]
+        return [r for r, _ in requests]
+
+    def route_table(self) -> dict:
+        """client -> [PoolKey, ...] for every routed client."""
+        return {c: [h.key for h in chain]
+                for c, chain in self._chains.items()}
+
+    # ------------------------------------------------------------- stats
+    def drain(self) -> int:
+        """Flush every pool to empty, DISCARDING results — the recovery
+        path when a serve() aborted mid-wave. Returns how many queued
+        requests were discarded."""
+        n = 0
+        for handle in self._handles.values():
+            for rid, _y in handle.flush():
+                if self._by_rid.pop(rid, None) is not None:
+                    n += 1
+        return n
+
+    def pool_stats(self) -> dict:
+        """PoolKey -> live pool stats (pid, queue_len, n_compiles, ...)."""
+        return {key: h.stats() for key, h in self._handles.items()}
+
+    @property
+    def n_stage_pools(self) -> int:
+        return len(self._handles)
+
+    def close(self) -> None:
+        for key in list(self._handles):
+            self._retire_pool(self._handles.pop(key))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
