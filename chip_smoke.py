@@ -10,9 +10,10 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 2. kernels — each kernel wrapper on the card against its plain PyTorch
    version on the same inputs: main-path shapes and edge shapes (prime
    S, sliding window, non-causal, GQA groups 1 and 4, head_dim 128/64/32,
-   segments starting mid-tile), in float32 and bfloat16; then times the
-   kernel, the plain version and a PyTorch library call at the main-path
-   shapes with CUDA events.
+   segments starting mid-tile; for the decode kernel ragged Sk, a
+   ring-buffer kv_pos with -1 holes, windows), in float32 and bfloat16;
+   then times the kernel, the plain version and a PyTorch library call
+   at the main-path shapes with CUDA events.
 3. serve   — full-width qwen3-1.7b (all 28 layers, random weights from a
    seeded generator on the card) through ``GraftPlanner.plan`` and
    ``GraftExecutor.serve`` over an ``InProcessTransport``, then
@@ -22,9 +23,25 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    last one under ``torch.profiler`` (device time by kernel group).
    The kernels' launch counters are zeroed just before the serve waves
    and read just after; each must be > 0.
+4. decode  — full-width qwen3-1.7b (28 layers) greedy decode through the
+   paged-KV continuous batch (``decode_plan``, batch 4, decode_ctx 512,
+   16-token KV blocks) in float32 with TF32 off: 8 streams of 64-320
+   prompt tokens (half share a prompt or a prefix with an earlier one),
+   16 new tokens each, one ``decode_abort`` whose freed slot admits a
+   stream mid-decode. Every finished stream must equal the port's
+   unbatched ``reference_decode`` token for token (the smallest top-1
+   minus top-2 logit margin of the reference is printed), the arena must
+   report prefix hits, and the decode kernel must have launched. Then the
+   same prompts through ``disagg_plan`` (prefill pool -> KV blocks over
+   the transport -> decode pool): tokens equal the single-pool run, KV
+   handoffs arrive, no stream is resident on the prefill pool. Then a
+   timed bfloat16 run and one decode step under ``torch.profiler``.
 
-The line before the last is ``nvidia-smi``'s name and power limit, the
-one before it the kernels' JSON record, and the last line the result:
+The launch counts in the kernels' record are the sums over the serve
+waves and the float32 decode runs (single-pool and disaggregated), each
+path's counters zeroed just before it and read just after. The line
+before the last is ``nvidia-smi``'s name and power limit, the one before
+it the kernels' JSON record, and the last line the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -153,22 +170,116 @@ def kernel_phase(device) -> dict:
                 check_close(f"flash_attention_lse lse {tag}", lse, lse2,
                             LSE_ATOL, 0.0)
                 worst["flash_attention_lse"][(dname, label)] = e
+    worst["decode_attention"] = decode_kernel_cases(device, gen)
     return worst
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def decode_inputs(gen, dtype, device, B, Sk, H, KV, hd, q_pos, ring):
+    """q, k, v, q_pos and kv_pos for one decode case: a plain cache holds
+    positions 0..q_pos in slots 0..q_pos (-1 past them); a ring holds
+    the last Sk positions up to q_pos at slot pos % Sk, -1 where the
+    ring has not wrapped yet."""
+    import numpy as np
+    import torch
+    q = rand(gen, (B, 1, H, hd), dtype, device)
+    k = rand(gen, (B, Sk, KV, hd), dtype, device)
+    v = rand(gen, (B, Sk, KV, hd), dtype, device)
+    kv_pos = np.full((B, Sk), -1, np.int32)
+    for b, qp in enumerate(q_pos):
+        lo = max(0, qp - Sk + 1) if ring else 0
+        for p in range(lo, min(qp + 1, lo + Sk)):
+            kv_pos[b, p % Sk if ring else p] = p
+    return (q, k, v, torch.tensor(q_pos, dtype=torch.int32, device=device),
+            torch.from_numpy(kv_pos).to(device))
+
+
+# (label, B, Sk, H, KV, hd, q_pos, ring, window): the shapes of
+# tests/test_kernels.py::test_decode_attention x window {0, 100}, then
+# a ragged Sk, a ring buffer and the main-path shape
+DECODE_MAIN = ("main path", 4, 512, 16, 8, 128, [511, 511, 511, 511],
+               False, 0)
+DECODE_CASES = [
+    (f"kernel-test shape{', window 100' if w else ''}", B, Sk, H, KV, hd,
+     [60 + 37 * b for b in range(B)], False, w)
+    for B, Sk, H, KV, hd in ((2, 256, 4, 2, 32), (3, 128, 8, 8, 64),
+                             (1, 512, 16, 2, 64))
+    for w in (0, 100)] + [
+    ("ragged Sk 131", 3, 131, 16, 8, 128, [130, 64, 0], False, 0),
+    ("ring with -1 holes", 3, 96, 16, 8, 128, [300, 95, 40], True, 0),
+    ("ring, window 40", 3, 96, 16, 8, 128, [300, 95, 40], True, 40),
+    ("main path, mixed positions", 4, 512, 16, 8, 128, [511, 300, 64, 5],
+     False, 0),
+    DECODE_MAIN,
+]
+
+
+def decode_kernel_cases(device, gen) -> dict:
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    worst = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        atol, rtol = TOL[dname]
+        for label, B, Sk, H, KV, hd, q_pos, ring, window in DECODE_CASES:
+            args = decode_inputs(gen, dtype, device, B, Sk, H, KV, hd,
+                                 q_pos, ring)
+            got = da.decode_attention(*args, window=window)
+            want = da.decode_attention_plain(*args, window=window)
+            torch.cuda.synchronize()
+            e = check_close(f"decode_attention {dname} {label} "
+                            f"{(B, Sk, H, KV, hd)} window {window}", got,
+                            want, atol, rtol)
+            worst[(dname, label)] = e
+    return worst
+
+
+# ~50 ms of device spin at the H100's ~2 GHz SM clock: the timed
+# launches queue up behind it
+SLEEP_CYCLES = 100_000_000
+
+
+def time_ms(fn, iters: int = 20) -> tuple:
+    """(device ms, host ms) per call of ``fn``, after 3 warm-up calls.
+
+    The timed calls are enqueued behind a device sleep, so the CUDA
+    events bracket back-to-back device work alone even where enqueueing
+    a call (Python, argument checks, the launch) costs the host more
+    than the call costs the device; the host ms is that enqueueing cost.
+    Fails if enqueueing outlasted the sleep (the events would then
+    include idle gaps)."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    c = torch.cuda.Event(enable_timing=True)
+    c.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
     a.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host = (time.perf_counter() - t0) * 1e3
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    if host >= c.elapsed_time(a):
+        fail(f"timing: enqueueing {iters} calls took {host:.1f} ms, longer "
+             f"than the {c.elapsed_time(a):.1f} ms device sleep")
+    return a.elapsed_time(b) / iters, host / iters
+
+
+def rotating(fn, copies):
+    """A callable that runs ``fn`` on the next of ``copies`` each call:
+    with more bytes across the copies than the 50 MB L2 holds, every
+    launch finds its inputs cold, as a decode step finds each layer's
+    cache."""
+    it = [0]
+
+    def run():
+        fn(*copies[it[0] % len(copies)])
+        it[0] += 1
+    return run
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple:
@@ -179,8 +290,9 @@ def bound(nbytes: float, flops: float, peak_flops: float) -> tuple:
 
 def timing_phase(device) -> dict:
     """Kernel, plain version and library call at the main-path shapes
-    (bfloat16, the serving dtype; the L2 cache is warm, as for a kernel
-    fed by the projection just before it)."""
+    (bfloat16, the serving dtype), as device time per call (``time_ms``).
+    For the prefill kernels the L2 cache is warm, as for a kernel fed by
+    the projection just before it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -219,16 +331,66 @@ def timing_phase(device) -> dict:
             dict(attn_mask=mask[:, None])
         library = lambda: F.scaled_dot_product_attention(           # noqa
             qt, kt, vt, enable_gqa=True, **lib_kw)
-        out[name] = {"ms": time_ms(run), "plain_ms": time_ms(plain),
-                     "library_ms": time_ms(library), "bound_ms": bms,
+        ms, host_ms = time_ms(run)
+        out[name] = {"ms": ms, "host_ms": host_ms,
+                     "plain_ms": time_ms(plain)[0],
+                     "library_ms": time_ms(library)[0], "bound_ms": bms,
                      "bound_by": by, "bytes": nbytes, "flops": flops,
                      "valid_pairs": pairs, "shape": (B, S, H, KV, hd)}
         r = out[name]
-        print(f"  {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library (SDPA) "
+        print(f"  {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms "
+              f"(host {host_ms:.4f} ms per call), plain "
+              f"{r['plain_ms']:.4f} ms, library (SDPA) "
               f"{r['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}: "
-              f"{nbytes} B, {flops:.3e} FLOP over {pairs} valid pairs)")
+              f"{nbytes} B, {flops:.3e} FLOP over {pairs} valid pairs); "
+              "device times")
+    out["decode_attention"] = time_decode(device, gen)
     return out
+
+
+def time_decode(device, gen) -> dict:
+    """Row 3 at the main-path shape (B=4, Sk=512, H=16, KV=8, hd=128,
+    bf16, every slot valid), L2 cold: 8 copies of the inputs (67 MB of
+    k/v) in turn. Library yardstick: SDPA with a (B, H, 1, Sk) boolean
+    mask built from kv_pos/q_pos."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.ref import _mask
+
+    _, B, Sk, H, KV, hd, q_pos, ring, window = DECODE_MAIN
+    copies = [decode_inputs(gen, torch.bfloat16, device, B, Sk, H, KV, hd,
+                            q_pos, ring) for _ in range(8)]
+    q, k, v, qp, kp = copies[0]
+    mask = _mask(qp[:, None], kp, causal=True, window=window)    # (B,1,Sk)
+    pairs = int(mask.sum().item()) * H
+    # q, k, v, o in bf16, q_pos and kv_pos int32, each once
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + qp.numel() * 4 \
+        + kp.numel() * 4
+    flops = 4.0 * hd * pairs              # QK^T and PV per valid pair
+    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+    lib = [(c[0].transpose(1, 2), c[1].transpose(1, 2),
+            c[2].transpose(1, 2),
+            _mask(c[3][:, None], c[4], causal=True,
+                  window=window)[:, None].expand(B, H, 1, Sk))
+           for c in copies]
+    ms, host_ms = time_ms(rotating(lambda *a: da.decode_attention(*a),
+                                   copies))
+    r = {"ms": ms, "host_ms": host_ms,
+         "plain_ms": time_ms(rotating(
+             lambda *a: da.decode_attention_plain(*a), copies))[0],
+         "library_ms": time_ms(rotating(
+             lambda qt, kt, vt, m: F.scaled_dot_product_attention(
+                 qt, kt, vt, attn_mask=m, enable_gqa=True), lib))[0],
+         "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
+         "valid_pairs": pairs, "shape": (B, Sk, H, KV, hd)}
+    print(f"  decode_attention bf16 {r['shape']}: kernel {r['ms']:.4f} ms "
+          f"(host {host_ms:.4f} ms per call), "
+          f"plain {r['plain_ms']:.4f} ms, library (SDPA, boolean mask) "
+          f"{r['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes} B, "
+          f"{flops:.3e} FLOP over {pairs} valid (head, slot) pairs; L2 "
+          "cold: 8 input copies in turn); device times")
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -263,16 +425,22 @@ def serve_wave(ex, reqs, label) -> float:
 MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
-def profile_wave(ex, reqs, label) -> None:
-    """Serve one wave under ``torch.profiler`` and print where the device
-    time went: kernel time by group, the device's busy share of the
-    wave's wall time (profiling slows the host, so the share reads low)
-    and the top kernels."""
+# substrings of the port's attention kernels (csrc/*.cu)
+ATTENTION_NAMES = ("attn_fwd_kernel", "decode_attn_kernel",
+                   "decode_combine_kernel")
+
+
+def profile_run(label, run) -> float:
+    """Call ``run`` (which returns its wall seconds, ended by a
+    synchronize) under ``torch.profiler`` and print where the device
+    time went: kernel time by group, the device's busy share of the wall
+    time (profiling slows the host, so the share reads low) and the top
+    kernels. Returns the device time in µs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = serve_wave(ex, reqs, label)
+        wall = run()
     groups = {"attention kernels": 0.0, "matmul": 0.0, "memcpy/memset": 0.0,
               "other kernels": 0.0}
     rows = []
@@ -282,7 +450,7 @@ def profile_wave(ex, reqs, label) -> None:
         us = float(getattr(ev, "self_device_time_total", 0.0))
         name = ev.key
         low = name.lower()
-        if "attn_fwd_kernel" in name:
+        if any(t in name for t in ATTENTION_NAMES):
             g = "attention kernels"
         elif any(t in low for t in MATMUL_NAMES):
             g = "matmul"
@@ -295,7 +463,7 @@ def profile_wave(ex, reqs, label) -> None:
     total = sum(groups.values())
     if total == 0:
         print(f"  {label}: the profiler saw no device time")
-        return
+        return 0.0
     print(f"  {label}: device busy {total / 1e3:.1f} ms of {wall * 1e3:.1f} "
           f"ms wall ({100 * total / 1e6 / wall:.1f}%)")
     for g, us in groups.items():
@@ -303,6 +471,7 @@ def profile_wave(ex, reqs, label) -> None:
               "device time)")
     for us, name in sorted(rows, reverse=True)[:6]:
         print(f"    top: {us / 1e3:.2f} ms {name[:90]}")
+    return total
 
 
 def check_results(cfg, params, reqs, label):
@@ -392,13 +561,210 @@ def serve_phase(device) -> dict:
         serve_wave(ex, make_wave(cfg16, frags2, rng), "bf16 warm-up wave")
         reqs3 = make_wave(cfg16, frags2, rng)
         serve_wave(ex, reqs3, "bf16 wave")
-        profile_wave(ex, make_wave(cfg16, frags2, rng), "bf16 profiled wave")
+        reqs4 = make_wave(cfg16, frags2, rng)
+        profile_run("bf16 profiled wave",
+                    lambda: serve_wave(ex, reqs4, "bf16 profiled wave"))
     launches16 = dict(fa.LAUNCHES)
     print(f"  kernel launches, bf16 waves: {launches16}")
     for req, _ in reqs3:
         if not torch.isfinite(req.result.float()).all():
             fail(f"bf16 wave: {req.client} result is not finite")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: decode serving on the main path
+# ---------------------------------------------------------------------------
+
+DECODE_CTX = 512
+DECODE_BATCH = 4
+KV_BLOCK_TOKENS = 16
+# every stream's blocks resident at once, with room to retain finished
+# prompts: 8 streams x ceil((320 + 40 + 16) / 16) = 192 blocks at most
+KV_BLOCKS = 256
+MAX_NEW = 16
+ABORT = {2: 4}                # stream 2 aborted after 4 batch steps
+
+
+def decode_prompts(cfg, rng) -> list:
+    """8 streams over 4 clients: streams 0-3 have fresh prompts of
+    64-320 tokens; stream 4 repeats stream 0's prompt and stream 5
+    stream 1's (whole-prompt prefix hits, a shared partial block that
+    copy-on-writes), streams 6 and 7 extend streams 2's and 3's prompts
+    by 8-40 fresh tokens (block-aligned prefix hits, the rest stepped)."""
+    import numpy as np
+    base = [rng.randint(0, cfg.vocab_size, int(rng.randint(64, 321)))
+            .astype(np.int32) for _ in range(4)]
+    tails = [rng.randint(0, cfg.vocab_size, int(rng.randint(8, 41)))
+             .astype(np.int32) for _ in range(2)]
+    return [(f"c{i}", t) for i, t in enumerate(base)] + [
+        ("c0", base[0].copy()), ("c1", base[1].copy()),
+        ("c2", np.concatenate([base[2], tails[0]])),
+        ("c3", np.concatenate([base[3], tails[1]]))]
+
+
+def run_decode(cfg, book, params, prompts, *, disagg, device, label):
+    """Drive the prompts through a fresh executor; returns (drive_decode
+    result, pool stats by role, wall seconds)."""
+    import torch
+    from repro_torch.core import Fragment
+    from repro_torch.serving import GraftExecutor, InProcessTransport
+    from repro_torch.serving.smoke import (decode_plan, disagg_plan,
+                                           drive_decode)
+    frags = [Fragment(cfg.name, 0, 50.0, 30.0, client=f"c{i}")
+             for i in range(4)]
+    plan = (disagg_plan if disagg else decode_plan)(cfg, book, frags,
+                                                    batch=DECODE_BATCH)
+    with GraftExecutor(plan, params, cfg, InProcessTransport(),
+                       decode_ctx=DECODE_CTX, kv_blocks=KV_BLOCKS,
+                       kv_block_tokens=KV_BLOCK_TOKENS,
+                       decode_disagg=disagg, device=device) as ex:
+        t0 = time.perf_counter()
+        r = drive_decode(ex, prompts, MAX_NEW, disagg=disagg,
+                         abort_at=ABORT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = {st["role"]: st for st in ex.pool_stats().values()}
+    n_tok = sum(len(t) for t in r["tokens"] if t)
+    print(f"  {label}: {len(prompts)} streams, aborted {r['aborted']}, "
+          f"{r['mid_admits']} admitted mid-decode, {r['steps']} batch "
+          f"steps, {n_tok} tokens, {r['handoffs']} KV handoffs; wall "
+          f"{wall:.3f} s (admissions {r['admit_s']:.3f} s, steps "
+          f"{r['step_s']:.3f} s)")
+    for role, st in stats.items():
+        kv = st["kv"] or {}
+        print(f"    pool {role}: admits {st['decode_admits']}, steps "
+              f"{st['decode_steps']}, prefill exports "
+              f"{st['prefill_exports']}, handoffs in {st['kv_handoffs_in']}"
+              f", resident {st['decode_active']}; arena prefix_hits "
+              f"{kv.get('prefix_hits')}, tokens reused "
+              f"{kv.get('prefix_tokens_reused')}, cow {kv.get('cow_copies')}"
+              f", evictions {kv.get('evictions')}, handoff blocks in "
+              f"{kv.get('handoff_blocks_in')}, handoff reused "
+              f"{kv.get('handoff_reused')}, active seqs "
+              f"{kv.get('active_seqs')}")
+    return r, stats, wall
+
+
+def decode_phase(device) -> dict:
+    """Serve the decode path; returns the kernels' launch counts over the
+    two float32 runs (single-pool, then disaggregated)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.smoke import reference_decode, smoke_setup
+
+    t0 = time.perf_counter()
+    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
+                                    dtype="float32", seq_len=DECODE_CTX,
+                                    device=device)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; decode_ctx "
+          f"{DECODE_CTX}, batch {DECODE_BATCH}, {KV_BLOCKS} KV blocks of "
+          f"{KV_BLOCK_TOKENS} tokens, {MAX_NEW} new tokens per stream; "
+          f"init {time.perf_counter() - t0:.1f} s")
+    prompts = decode_prompts(cfg, np.random.RandomState(1))
+    print(f"  prompt lengths: {[len(t) for _, t in prompts]}")
+    t0 = time.perf_counter()
+    want, worst = [], []
+    for i, (_, toks) in enumerate(prompts):
+        margins: list = []
+        want.append(reference_decode(cfg, params, toks, MAX_NEW,
+                                     margins=margins))
+        worst.append(min(margins))
+    print(f"  reference (unbatched) decode: {time.perf_counter() - t0:.1f} s"
+          f"; smallest top-1 minus top-2 logit margin per stream "
+          f"{[f'{m:.4g}' for m in worst]}, over all {min(worst):.4g}")
+
+    fa.reset_launches()                     # the decode path starts here
+    da.reset_launches()
+    single, stats, _ = run_decode(cfg, book, params, prompts, disagg=False,
+                                  device=device, label="single pool, fp32")
+    split, dstats, _ = run_decode(cfg, book, params, prompts, disagg=True,
+                                  device=device, label="disaggregated, fp32")
+    torch.cuda.synchronize()
+    launches = {**fa.LAUNCHES, **da.LAUNCHES}   # ... and ends here
+    print(f"  kernel launches on the decode path: {launches}")
+
+    for i, got in enumerate(single["tokens"]):
+        if i in single["aborted"]:
+            continue
+        if got != want[i]:
+            fail(f"decode stream {i}: served {got} != reference {want[i]} "
+                 f"(smallest reference margin {worst[i]:.4g})")
+    print(f"  single pool: {len(prompts) - len(single['aborted'])} finished "
+          "streams equal the unbatched reference token for token")
+    if single["aborted"] != list(ABORT) or single["mid_admits"] < 1:
+        fail(f"the abort or the mid-decode admission did not happen: "
+             f"{single['aborted']}, {single['mid_admits']}")
+    if stats["both"]["kv"]["prefix_hits"] < 1:
+        fail("no prefix hit in the single-pool arena")
+    if split["tokens"] != single["tokens"]:
+        fail(f"disaggregated tokens {split['tokens']} != single-pool "
+             f"{single['tokens']}")
+    if dstats["decode"]["kv_handoffs_in"] < 1 or \
+            dstats["prefill"]["decode_active"] != 0:
+        fail(f"disaggregation: handoffs in "
+             f"{dstats['decode']['kv_handoffs_in']}, resident on the "
+             f"prefill pool {dstats['prefill']['decode_active']}")
+    print("  disaggregated: tokens equal the single-pool run; KV handoffs "
+          "in, nothing resident on the prefill pool")
+    if launches["decode_attention"] <= 0 or \
+            launches["flash_attention_lse"] <= 0:
+        fail(f"a kernel of the decode path never launched: {launches}")
+
+    # the same path in bfloat16, timed, then one profiled decode step
+    del params
+    cfg16, _, params16 = smoke_setup("qwen3-1.7b", full_width=True,
+                                     dtype="bfloat16", seq_len=DECODE_CTX,
+                                     device=device)
+    r16, _, wall = run_decode(cfg16, book, params16, prompts, disagg=False,
+                              device=device, label="single pool, bf16")
+    n_tok = sum(len(t) for t in r16["tokens"] if t)
+    print(f"  bf16 decode: {r16['steps']} steps, {n_tok} tokens in "
+          f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; per batch step "
+          f"{1e3 * r16['step_s'] / r16['steps']:.2f} ms wall (host clock; "
+          "each step ends in the host copy of its tokens, which "
+          "synchronizes)")
+    step_ms = 1e3 * r16["step_s"] / r16["steps"]
+    dev_us = profile_decode_step(cfg16, book, params16, prompts, device)
+    print(f"  bf16 decode step: device busy {dev_us / 1e3:.2f} ms (profiled)"
+          f" of a {step_ms:.2f} ms unprofiled step ({dev_us / 10 / step_ms:.1f}"
+          "%): the rest of the step the device waits on the host")
+    return launches
+
+
+def profile_decode_step(cfg, book, params, prompts, device) -> float:
+    """Fill the batch with four streams, warm one step, then profile one
+    decode step of the full batch."""
+    import torch
+    from repro_torch.core import Fragment
+    from repro_torch.serving import GraftExecutor, InProcessTransport
+    from repro_torch.serving.smoke import decode_plan
+    frags = [Fragment(cfg.name, 0, 50.0, 30.0, client="c0")]
+    with GraftExecutor(decode_plan(cfg, book, frags, batch=DECODE_BATCH),
+                       params, cfg, InProcessTransport(),
+                       decode_ctx=DECODE_CTX, kv_blocks=KV_BLOCKS,
+                       kv_block_tokens=KV_BLOCK_TOKENS,
+                       device=device) as ex:
+        h = ex.handle(next(iter(ex.pool_specs())))
+        for i, (client, toks) in enumerate(prompts[:DECODE_BATCH]):
+            if not h.decode_admit(ex.next_rid(), client, toks,
+                                  MAX_NEW)["admitted"]:
+                fail("profiled decode step: admission refused")
+        h.decode_step()
+
+        def step():
+            t0 = time.perf_counter()
+            rep = h.decode_step()
+            torch.cuda.synchronize()
+            if rep["active"] != DECODE_BATCH:
+                fail(f"profiled decode step: {rep['active']} resident")
+            return time.perf_counter() - t0
+        return profile_run(
+            f"bf16 profiled decode step (batch {DECODE_BATCH})", step)
 
 
 def main() -> int:
@@ -440,12 +806,22 @@ def main() -> int:
     print("== serve")
     launches = serve_phase(device)
 
+    print("== decode")
+    dlaunches = decode_phase(device)
+    launches = {name: launches.get(name, 0) + dlaunches.get(name, 0)
+                for name in dlaunches}
+
+    source = {"flash_attention": "flash_attention.cu",
+              "flash_attention_lse": "flash_attention.cu",
+              "decode_attention": "decode_attention.cu"}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:141",
                 "flash_attention_lse":
-                    "src/repro/kernels/flash_attention_bwd.py:86"}
+                    "src/repro/kernels/flash_attention_bwd.py:86",
+                "decode_attention":
+                    "src/repro/kernels/decode_attention.py:93"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": f"src/repro_torch/kernels/csrc/{source[name]}",
          "replaces": replaces[name],
          "launches": launches[name],
          "max_abs_err": max(worst[name].values()),
@@ -453,7 +829,8 @@ def main() -> int:
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name in ("flash_attention", "flash_attention_lse")]}
+        for name in ("flash_attention", "flash_attention_lse",
+                     "decode_attention")]}
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(smi)

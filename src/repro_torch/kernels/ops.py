@@ -1,9 +1,10 @@
-"""The attention entry point the models call.
+"""The attention entry points the models call.
 
 A tensor on the CPU runs the plain PyTorch version; a CUDA tensor runs
-the Hopper kernel (``kernels/flash_attention.py``) or raises. There is
-no block-size choice here: the kernel tiles the sequence itself and
-masks the ragged edge.
+the Hopper kernel (``kernels/flash_attention.py``,
+``kernels/decode_attention.py``) or raises. There is no block-size
+choice here: the kernels tile the sequence themselves and mask the
+ragged edge.
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_lse)
 
@@ -35,3 +37,12 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *,
     o, _ = flash_attention_lse(q, k, v, causal=causal, window=window,
                                scale=scale)
     return o
+
+
+def attend_cache(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                 kv_pos: Tensor, *, window: int = 0,
+                 scale: Optional[float] = None) -> Tensor:
+    """Single-token decode attention against a (possibly ring-buffer)
+    cache. q (B,1,H,hd), k/v (B,Sk,KV,hd), q_pos (B,), kv_pos (B,Sk)."""
+    return decode_attention(q, k, v, q_pos, kv_pos, window=window,
+                            scale=scale)

@@ -1,8 +1,8 @@
 """Plain PyTorch attention: the oracle and the memory-bounded reference.
 
 These are the plain versions of the Hopper attention kernels
-(``kernels/flash_attention.py``): the CPU path runs them, and the kernels
-are held against them on the card.
+(``kernels/flash_attention.py``, ``kernels/decode_attention.py``): the
+CPU path runs them, and the kernels are held against them on the card.
 
 Conventions
 -----------
@@ -95,6 +95,17 @@ def ref_attention(q: Tensor, k: Tensor, v: Tensor, *,
                           torch.full_like(s[..., 0], NEG_INF))
         return o, lse
     return o
+
+
+def attend_cache_plain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                       kv_pos: Tensor, *, window: int = 0,
+                       scale: Optional[float] = None) -> Tensor:
+    """One query token per row against a (possibly ring-buffer) cache:
+    q (B,1,H,hd), k/v (B,Sk,KV,hd), q_pos (B,), kv_pos (B,Sk) with -1 for
+    unwritten slots. The plain version of the decode kernel
+    (``kernels/decode_attention.py``); a row with no valid slot gives 0."""
+    return ref_attention(q, k, v, q_pos=q_pos[:, None], kv_pos=kv_pos,
+                         causal=True, window=window, scale=scale)
 
 
 def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *,

@@ -1,8 +1,14 @@
-"""GQA attention block: projections, qk-norm, RoPE, full-sequence forward.
+"""GQA attention block: projections, qk-norm, RoPE, KV-cache management.
 
 Supports GQA (any group size), qk_norm (qwen3/olmoe), QKV bias (qwen2),
-sliding-window attention and cross-attention. The one-token decode path
-comes with the decode slice.
+sliding-window attention, cross-attention in the full-sequence forward,
+and one-token decode against plain or ring-buffer KV caches (float or
+int8-quantized).
+
+Decode writes the cache IN PLACE: where the JAX package returns an
+updated copy (``.at[].set``, ``dynamic_update_slice``), :func:`attn_decode`
+writes the new token's k/v (and int8 scales) into the cache tensors it
+is given and returns those same tensors, so a step never copies a cache.
 """
 from __future__ import annotations
 
@@ -95,4 +101,99 @@ def attn_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
     out = o.reshape(B, S, -1) @ p["wo"]
     if return_kv:
         return out, (k, v)
+    return out
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+                  device) -> dict:
+    """Stacked (over layers) KV cache. cache_len should already account for
+    sliding windows (ring buffer of size min(seq, window))."""
+    dt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
+    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---- int8 KV-cache quantization -------------------------------------------
+
+def quantize_kv(x: Tensor) -> tuple[Tensor, Tensor]:
+    """(.., S, KV, hd) -> (int8 values, fp32 absmax scale (.., S, KV))."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def _slot(pos: Tensor, cache_len: int, window: int) -> Tensor:
+    """Cache slot of each row's position: the ring index with a window,
+    else the position clamped to the last slot — the clamp JAX's
+    ``dynamic_update_slice`` applies silently. Idle batch rows keep
+    stepping past the capacity, so the clamp keeps their writes in
+    range."""
+    if window:
+        return torch.remainder(pos, cache_len)
+    return torch.clamp(pos, max=cache_len - 1)
+
+
+def _write_slot(cache: Tensor, new: Tensor, slot: Tensor) -> Tensor:
+    """cache (B,Sc,...), new (B,1,...), slot (B,): writes row b's new entry
+    at slot[b] in place and returns ``cache``."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, slot.long()] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x: Tensor,
+                cache_k: Tensor, cache_v: Tensor,
+                pos: Tensor, kv_pos: Tensor, *,
+                window: int = 0,
+                cross_kv: Optional[tuple[Tensor, Tensor]] = None,
+                scales: Optional[tuple[Tensor, Tensor]] = None,
+                ) -> tuple[Tensor, Tensor, Tensor, Optional[tuple]]:
+    """One-token decode. x (B,1,d); cache_k/v (B,Sc,KV,hd); pos (B,) int32;
+    kv_pos (B,Sc) already holding ``pos`` at this step's slot. Returns
+    (out (B,1,d), cache_k, cache_v, scales) — the caches (and the int8
+    ``scales`` pair) written in place.
+    """
+    if cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention decode belongs to the vlm/audio slice, which "
+            "is not ported yet")
+    B = x.shape[0]
+    q = _project_q(p, cfg, x)
+    k_new, v_new = _project_kv(p, cfg, x)
+    if cfg.rope_theta > 0:
+        cos, sin = rope_freqs(cfg, pos[:, None])
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
+    slot = _slot(pos, cache_k.shape[1], window)
+    if cache_k.dtype == torch.int8:
+        kq, ks = quantize_kv(k_new)
+        vq, vs = quantize_kv(v_new)
+        _write_slot(cache_k, kq, slot)
+        _write_slot(cache_v, vq, slot)
+        _write_slot(scales[0], ks, slot)
+        _write_slot(scales[1], vs, slot)
+        k_eff = dequantize_kv(cache_k, scales[0], x.dtype)
+        v_eff = dequantize_kv(cache_v, scales[1], x.dtype)
+    else:
+        _write_slot(cache_k, k_new, slot)
+        _write_slot(cache_v, v_new, slot)
+        k_eff, v_eff = cache_k, cache_v
+    o = ops.attend_cache(q, k_eff, v_eff, pos, kv_pos, window=window)
+    return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v, scales
+
+
+def update_kv_pos(kv_pos: Tensor, pos: Tensor, cache_len: int,
+                  window: int) -> Tensor:
+    """Track global positions stored in each cache slot (-1 = unwritten).
+    Returns a new tensor; ``kv_pos`` is left as it was."""
+    out = kv_pos.clone()
+    rows = torch.arange(out.shape[0], device=out.device)
+    out[rows, _slot(pos, cache_len, window).long()] = pos.to(out.dtype)
     return out

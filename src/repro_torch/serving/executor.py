@@ -20,8 +20,14 @@ end)``, so :meth:`GraftExecutor.apply_plan` can transition a *live*
 deployment to a new plan: pools whose block range survives the replan
 keep their queue instead of being rebuilt.
 
-Only the one-shot path is here; the decode slots (paged KV, continuous
-batching, disaggregation) come with the decode slice.
+Full-range pools also serve autoregressive decode: a paged KV arena with
+prefix sharing (``serving/kvcache.py``), a dense batched decode cache on
+the pool's device stepped one token per call for every resident stream
+(continuous batching: admissions and aborts at step boundaries), and
+prefill/decode disaggregation — a prefill-role pool exports a prompt's
+KV blocks over the transport and a decode-role pool imports them. On the
+card every decode step's attention is the Hopper kernel
+``kernels/decode_attention.py``.
 """
 from __future__ import annotations
 
@@ -40,17 +46,21 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.core.placement import MOVE, migrate, place_pools
-from repro_torch.core.plandiff import (diff_plans, plan_pools, PlanDiff,
-                                       PoolSpec)
+from repro_torch.core.plandiff import (diff_plans, plan_pools, pool_range,
+                                       PlanDiff, PoolSpec)
 from repro_torch.core.repartition import pool_key
 from repro_torch.models import n_fragment_units, resolve_device, run_fragment
+from repro_torch.models.decode import (cache_len_for, decode_step,
+                                       init_cache, prefill)
 from repro_torch.models.packed import (_packed_forward, is_packable,
                                        pack_segments)
 from repro_torch.serving.batcher import bucket_size, seq_bucket, token_bucket
+from repro_torch.serving.kvcache import KVCacheOOM, PagedKVCache
 from repro_torch.serving.simulator import _routing
 from repro_torch.serving.telemetry import NULL as NULL_TELEMETRY
 from repro_torch.serving.transport import (Channel, InProcessTransport,
-                                           Transport, error_reply)
+                                           Transport, decode_kv_blocks,
+                                           encode_kv_blocks, error_reply)
 
 Tensor = torch.Tensor
 
@@ -61,6 +71,9 @@ class ServeRequest:
     tokens: object                       # (S,) int32 numpy array or tensor
     extras: Optional[dict] = None
     result: Optional[Tensor] = None      # on the host, as the wire left it
+    # -- decode (autoregressive) requests only --
+    max_new_tokens: int = 0              # > 0 marks a decode request
+    out_tokens: Optional[list] = None    # generated token ids on completion
 
 
 class PoolDrainingError(RuntimeError):
@@ -68,8 +81,21 @@ class PoolDrainingError(RuntimeError):
 
 
 def pool_endpoint(key: tuple) -> str:
-    """Transport endpoint name for a pool identity (model, start, end)."""
-    return f"pool/{key[0]}/{key[1]}-{key[2]}"
+    """Transport endpoint name for a pool identity. Role-qualified keys
+    (decode pools coexisting with the prefill pool over the same block
+    range) get a ``@role`` suffix so both endpoints can be served."""
+    name = f"pool/{key[0]}/{key[1]}-{key[2]}"
+    if len(key) > 3:
+        name += f"@{key[3]}"
+    return name
+
+
+def _sig_tuple(x):
+    """Recursively re-tuple a reuse signature that crossed msgpack
+    (which decodes tuples as lists) so it is hashable again."""
+    if isinstance(x, (list, tuple)):
+        return tuple(_sig_tuple(e) for e in x)
+    return x
 
 
 def _params_device(params: dict) -> torch.device:
@@ -95,7 +121,9 @@ class FragmentInstance:
     """
 
     def __init__(self, params, cfg: ModelConfig, spec: PoolSpec,
-                 *, packed: bool = True, telemetry=None):
+                 *, packed: bool = True, decode_ctx: int = 0,
+                 kv_blocks: int = 64, kv_block_tokens: int = 16,
+                 telemetry=None):
         self.cfg = cfg
         self.telemetry = telemetry if telemetry is not None \
             else NULL_TELEMETRY
@@ -119,6 +147,26 @@ class FragmentInstance:
         self.real_tokens = 0          # payload tokens actually requested
         self.pad_tokens = 0           # bucket-padding tokens executed
         self._shapes_seen: set = set()
+        # -- decode (autoregressive) serving state, built lazily on the
+        # first admission so one-shot pools pay nothing --
+        self.decode_ctx = int(decode_ctx)
+        self.kv_blocks = int(kv_blocks)
+        self.kv_block_tokens = int(kv_block_tokens)
+        self.kv: Optional[PagedKVCache] = None
+        self._dc: Optional[dict] = None       # dense batched decode cache
+        self._slots: list = []                # per-row sequence state
+        self.decode_admits = 0
+        self.decode_steps = 0
+        self.decode_tokens = 0                # admission firsts + step emits
+        self.prefill_exports = 0              # cross-pool KV handoffs out
+        self.kv_handoffs_in = 0               # cross-pool KV handoffs in
+        # cross-request prefix sharing reconstructs a prompt's KV from the
+        # paged arena alone, which only the attention-only families allow.
+        # The arena keeps no int8 scales, so an int8 KV cache never shares
+        # (the JAX package shares there, and a shared admission decodes
+        # other tokens than its unbatched reference: ROADMAP.md §3)
+        self._kv_share = cfg.family in ("dense", "moe") \
+            and cfg.kv_cache_dtype != "int8"
 
     def retarget(self, spec: PoolSpec) -> None:
         """Adopt a new pool shape; the block range is unchanged by
@@ -250,6 +298,255 @@ class FragmentInstance:
         return {k: torch.cat([torch.as_tensor(e[k]) for e in rows]).to(device)
                 for k in extras_list[0]}
 
+    # ------------------------------------------------------ decode serving
+    @property
+    def can_decode(self) -> bool:
+        """Decode runs on pools holding the FULL block range (the cache
+        spans every layer), for families whose per-row cache state copies
+        cleanly between a solo admission cache and the batched one, with
+        a context that fits the dense cache without ring wraparound so
+        cache slot == absolute position and arena extraction is exact.
+        (Of those families only dense is ported: moe and hybrid raise
+        ``NotImplementedError`` at their first admission.)"""
+        return (self.decode_ctx > 0 and self.start == 0
+                and self.end == self._units
+                and self.cfg.family in ("dense", "moe", "hybrid")
+                and cache_len_for(self.cfg, self.decode_ctx)
+                == self.decode_ctx)
+
+    def _ensure_decode(self) -> None:
+        if self._dc is not None:
+            return
+        B = max(self.batch, 1)
+        dc = init_cache(self.cfg, B, self.decode_ctx, device=self.device)
+        self.kv = PagedKVCache(self.kv_blocks, self.kv_block_tokens,
+                               n_layers=self.cfg.n_layers,
+                               n_kv_heads=self.cfg.n_kv_heads,
+                               head_dim=self.cfg.head_dim_,
+                               telemetry=self.telemetry)
+        self._dc = dc
+        self._slots = [None] * B
+
+    @staticmethod
+    def _row_axis(key: str) -> int:
+        """Batch axis of a decode-cache entry: per-row vectors lead with
+        it; layer-stacked tensors carry it second."""
+        return 0 if key in ("pos", "kv_pos") else 1
+
+    def _copy_row(self, dst: dict, src: dict, i: int) -> dict:
+        """Write the B=1 cache ``src`` into row ``i`` of batched ``dst``,
+        in place."""
+        for k, v in dst.items():
+            if self._row_axis(k) == 0:
+                v[i].copy_(src[k][0])
+            else:
+                v[:, i].copy_(src[k][:, 0])
+        return dst
+
+    def _solo_prefill(self, rid: int, toks: np.ndarray, n_shared: int):
+        """B=1 prompt processing for one admission: gather the shared
+        prefix KV from the paged arena (keeping at least the LAST prompt
+        token to recompute, so a fully-shared prompt still yields first-
+        token logits), step the remainder, and return the first generated
+        token, the cache row, and the arena-bound suffix KV."""
+        cfg, S, dev = self.cfg, int(toks.shape[0]), self.device
+        pop = min(n_shared, S - 1)            # prefix positions gathered
+        if pop == 0:
+            logits, c1 = prefill(self._params, cfg,
+                                 torch.from_numpy(toks).to(dev)[None],
+                                 cache_seq=self.decode_ctx)
+        else:
+            c1 = init_cache(cfg, 1, self.decode_ctx, device=dev)
+            k, v = self.kv.gather(rid, pop)   # (pop, L, KV, hd) float32
+            c1["k"][:, 0, :pop] = torch.from_numpy(k).to(dev).transpose(0, 1)
+            c1["v"][:, 0, :pop] = torch.from_numpy(v).to(dev).transpose(0, 1)
+            c1["kv_pos"][0, :pop] = torch.arange(pop, dtype=torch.int32,
+                                                 device=dev)
+            c1["pos"].fill_(pop)
+            logits = None
+            for t in toks[pop:]:
+                logits, c1 = decode_step(
+                    self._params, cfg, c1,
+                    torch.tensor([[int(t)]], dtype=torch.int32, device=dev))
+        first = int(torch.argmax(logits[0, -1]))
+        # only the arena-bound suffix positions cross to the host, never
+        # the whole (L, 1, decode_ctx, KV, hd) cache
+        ks = c1["k"][:, 0, n_shared:S].float().transpose(0, 1).cpu().numpy()
+        vs = c1["v"][:, 0, n_shared:S].float().transpose(0, 1).cpu().numpy()
+        return first, c1, ks, vs
+
+    def prefill_export(self, rid: int, client: str, tokens,
+                       sig: tuple) -> dict:
+        """Disaggregated prefill: run the prompt through this pool's
+        arena (prefix sharing included), export the resulting KV blocks
+        for the cross-pool handoff, and return the FIRST generated token.
+        No decode slot is consumed: prefill-role pools never hold a
+        resident stream. The arena retains the blocks (``_kv_share``
+        families) so repeat prompts re-export without recompute."""
+        if self.draining:
+            raise PoolDrainingError(
+                f"pool {self.key} is draining (batch=0): enqueue refused")
+        if not self.can_decode or self.role == "decode":
+            return {"exported": False, "reason": "not_prefill_capable"}
+        self._ensure_decode()
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        S = int(toks.shape[0])
+        if S + 1 > self.decode_ctx:
+            return {"exported": False, "reason": "ctx_overflow"}
+        if not self.kv.has_room(S):
+            return {"exported": False, "reason": "kv_oom"}
+        key = tuple(sig) if self._kv_share else ("solo", rid)
+        try:
+            n_shared = self.kv.begin(rid, key, toks)
+        except KVCacheOOM:
+            return {"exported": False, "reason": "kv_oom"}
+        first, _c1, ks, vs = self._solo_prefill(rid, toks, n_shared)
+        self.kv.write_prompt_kv(rid, ks, vs)
+        payload = self.kv.export_prefix(rid)
+        self.kv.finish(rid, retain=self._kv_share)
+        self.prefill_exports += 1
+        self.decode_tokens += 1
+        return {"exported": True, "tok": first, "n_shared": n_shared,
+                "kv": encode_kv_blocks(payload)}
+
+    def decode_admit(self, rid: int, client: str, tokens, max_new: int,
+                     sig: tuple, handoff: Optional[dict] = None) -> dict:
+        """Admit one sequence into the continuous decode batch: paged-KV
+        admission (with prefix sharing), solo prefill of the prompt, row
+        copy into a free batch slot. Produces the FIRST generated token.
+        Refusals are soft (``admitted`` False with a reason).
+
+        ``handoff`` is a decoded KV-block envelope from a prefill pool's
+        :meth:`prefill_export`: its blocks seed this arena's prefix index
+        under the exporter's chain keys BEFORE ``begin`` runs, so the
+        prompt admits fully shared (only the last position recomputes).
+        A partial import (receiver OOM) just lowers ``n_shared``."""
+        if self.draining:
+            raise PoolDrainingError(
+                f"pool {self.key} is draining (batch=0): enqueue refused")
+        if self.role == "prefill":
+            return {"admitted": False, "reason": "role_prefill"}
+        if not self.can_decode:
+            return {"admitted": False, "reason": "not_decode_capable"}
+        self._ensure_decode()
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        S = int(toks.shape[0])
+        max_new = max(int(max_new), 1)
+        if S + max_new > self.decode_ctx:
+            return {"admitted": False, "reason": "ctx_overflow"}
+        try:
+            slot = self._slots.index(None)
+        except ValueError:
+            return {"admitted": False, "reason": "no_slot"}
+        if not self.kv.has_room(S + max_new):
+            return {"admitted": False, "reason": "kv_oom"}
+        if handoff is not None and self._kv_share:
+            self.kv.import_prefix(handoff["sig"], handoff["blocks"])
+            self.kv_handoffs_in += 1
+        key = tuple(sig) if self._kv_share else ("solo", rid)
+        try:
+            n_shared = self.kv.begin(rid, key, toks)
+        except KVCacheOOM:
+            return {"admitted": False, "reason": "kv_oom"}
+        first, c1, ks, vs = self._solo_prefill(rid, toks, n_shared)
+        self.kv.write_prompt_kv(rid, ks, vs)
+        done = max_new == 1
+        if done:
+            self.kv.finish(rid, retain=self._kv_share)
+        else:
+            self._copy_row(self._dc, c1, slot)
+            self._slots[slot] = {"rid": rid, "client": client,
+                                 "max_new": max_new, "n_gen": 1,
+                                 "last": first, "out": [first],
+                                 "prompt_len": S}
+        self.decode_admits += 1
+        self.decode_tokens += 1
+        return {"admitted": True, "tok": first, "done": done,
+                "n_shared": n_shared,
+                "tokens": [first] if done else None}
+
+    def decode_step_batch(self) -> dict:
+        """ONE iteration of the continuous decode batch: every resident
+        sequence advances a token; finished sequences free their KV
+        blocks and vacate their slot WITHOUT stalling the rest. Returns
+        per-sequence events plus slot occupancy, which says how many
+        admissions fit at this step boundary."""
+        active = [i for i, s in enumerate(self._slots) if s]
+        if not active:
+            return {"events": [], "active": 0,
+                    "free_slots": len(self._slots)}
+        B, dev = len(self._slots), self.device
+        toks = np.zeros((B, 1), np.int32)
+        for i in active:
+            toks[i, 0] = self._slots[i]["last"]
+        # a host copy taken before the step: the step advances pos
+        pos_before = self._dc["pos"].cpu().numpy().copy()
+        logits, self._dc = self._call_counted(
+            decode_step, self._params, self.cfg, self._dc,
+            torch.from_numpy(toks).to(dev), shape_key=("decode", B))
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        # slice on the device first: only the active rows' new slot
+        # ((L, n_active, KV, hd), slot == position under can_decode)
+        # crosses to the host, never the whole batched cache
+        rows = torch.tensor(active, device=dev)
+        at = torch.from_numpy(pos_before[active].astype(np.int64)).to(dev)
+        k_new = self._dc["k"][:, rows, at].float().cpu().numpy()
+        v_new = self._dc["v"][:, rows, at].float().cpu().numpy()
+        events = []
+        for j, i in enumerate(active):
+            s = self._slots[i]
+            ev = {"rid": s["rid"], "client": s["client"]}
+            try:
+                self.kv.append(s["rid"], int(toks[i, 0]),
+                               k_new[:, j], v_new[:, j])
+            except KVCacheOOM:
+                # admission reserved nothing: under pressure a boundary
+                # alloc can fail mid-stream — surface it as a forced
+                # finish instead of wedging the batch
+                self.kv.release(s["rid"])
+                self._slots[i] = None
+                ev.update(done=True, oom=True, n_gen=s["n_gen"],
+                          tokens=list(s["out"]))
+                events.append(ev)
+                continue
+            tok = int(nxt[i])
+            s["out"].append(tok)
+            s["last"] = tok
+            s["n_gen"] += 1
+            done = s["n_gen"] >= s["max_new"]
+            ev.update(tok=tok, done=done, n_gen=s["n_gen"])
+            if done:
+                ev["tokens"] = list(s["out"])
+                self.kv.finish(s["rid"], retain=self._kv_share)
+                self._slots[i] = None
+            events.append(ev)
+        self.decode_steps += 1
+        self.decode_tokens += len(active)
+        return {"events": events,
+                "active": sum(1 for s in self._slots if s),
+                "free_slots": sum(1 for s in self._slots if s is None)}
+
+    def decode_abort(self, rid: int) -> bool:
+        """Evict one resident sequence (mid-decode shed): free its KV
+        blocks without retention, vacate the slot."""
+        for i, s in enumerate(self._slots):
+            if s and s["rid"] == rid:
+                self.kv.release(rid)
+                self._slots[i] = None
+                return True
+        return False
+
+    @property
+    def decode_active(self) -> int:
+        return sum(1 for s in self._slots if s)
+
+    @property
+    def decode_free_slots(self) -> int:
+        if self._dc is None:
+            return max(self.batch, 1) if self.can_decode else 0
+        return sum(1 for s in self._slots if s is None)
+
+
 
 class PoolService:
     """Server-side adapter: transport messages -> FragmentInstance ops.
@@ -306,6 +603,25 @@ class PoolService:
             # runs on
             inst.chips = [int(c) for c in msg["chips"]]
             return {"ok": True}
+        if op == "prefill":
+            return {"ok": True, **inst.prefill_export(
+                msg["req_id"], msg["client"],
+                np.asarray(msg["tokens"], np.int32),
+                _sig_tuple(msg.get("sig") or ()))}
+        if op == "dadmit":
+            handoff = msg.get("kv")
+            if handoff is not None:
+                # validate on the receiving side of the hop: a mangled
+                # envelope is a FrameError reply, not an arena crash
+                handoff = decode_kv_blocks(handoff)
+            return {"ok": True, **inst.decode_admit(
+                msg["req_id"], msg["client"],
+                np.asarray(msg["tokens"], np.int32), msg["max_new"],
+                _sig_tuple(msg.get("sig") or ()), handoff=handoff)}
+        if op == "dstep":
+            return {"ok": True, **inst.decode_step_batch()}
+        if op == "dabort":
+            return {"ok": True, "aborted": inst.decode_abort(msg["req_id"])}
         if op == "stats":
             tel = inst.telemetry
             return {"ok": True, "pid": os.getpid(),
@@ -319,6 +635,17 @@ class PoolService:
                     "chips": list(inst.chips),
                     "draining": inst.draining,
                     "role": inst.role,
+                    "decode_active": inst.decode_active,
+                    "decode_free_slots": inst.decode_free_slots,
+                    "decode_admits": inst.decode_admits,
+                    "decode_steps": inst.decode_steps,
+                    "decode_tokens": inst.decode_tokens,
+                    "prefill_exports": inst.prefill_exports,
+                    "kv_handoffs_in": inst.kv_handoffs_in,
+                    "kv": inst.kv.stats() if inst.kv else None,
+                    # prefix-residency digest for KV-affinity pool choice
+                    "kv_residency": list(inst.kv.residency_digest())
+                    if inst.kv else [],
                     "telemetry": tel.snapshot() if tel.enabled else None}
         raise ValueError(f"unknown pool op {op!r}")
 
@@ -379,6 +706,40 @@ class PoolHandle:
              "extras": extras} for rid, client, payload, extras in items]})
         return [(r["req_id"], r["payload"]) for r in reply["results"]]
 
+    def decode_admit(self, req_id: int, client: str, tokens,
+                     max_new: int, sig: tuple = (), *,
+                     handoff: Optional[dict] = None) -> dict:
+        """Admit one sequence into the pool's continuous decode batch;
+        the reply carries the FIRST generated token (or a soft refusal
+        with ``admitted`` False and a reason). ``handoff`` is an encoded
+        KV-block envelope from :meth:`prefill_export` — it crosses this
+        hop and seeds the pool arena's prefix index before admission."""
+        msg = {"op": "dadmit", "req_id": req_id, "client": client,
+               "tokens": np.asarray(tokens, np.int32),
+               "max_new": int(max_new), "sig": list(sig)}
+        if handoff is not None:
+            msg["kv"] = handoff
+        return self._call(msg)
+
+    def prefill_export(self, req_id: int, client: str, tokens,
+                       sig: tuple = ()) -> dict:
+        """Disaggregated prompt prefill on a prefill-role pool; the reply
+        carries the first generated token plus the KV-block envelope to
+        hand a decode pool (or ``exported`` False with a reason)."""
+        return self._call({"op": "prefill", "req_id": req_id,
+                           "client": client,
+                           "tokens": np.asarray(tokens, np.int32),
+                           "sig": list(sig)})
+
+    def decode_step(self) -> dict:
+        """Advance the decode batch one iteration; returns events plus
+        slot occupancy."""
+        return self._call({"op": "dstep"})
+
+    def decode_abort(self, req_id: int) -> bool:
+        return bool(self._call({"op": "dabort",
+                                "req_id": req_id}).get("aborted"))
+
     def retarget(self, spec: PoolSpec) -> None:
         self._call({"op": "retarget", "key": list(spec.key),
                     "share": spec.share, "batch": spec.batch,
@@ -399,11 +760,18 @@ class GraftExecutor:
     """Deploys an ExecutionPlan for ONE model, routing every pool hop
     through ``transport`` (default: in-process loopback with full wire
     framing). ``device`` (None = the card) is where the pools run; the
-    params must already lie there."""
+    params must already lie there.
+
+    ``decode_ctx`` > 0 makes full-range pools decode-capable: each owns a
+    paged KV arena of ``kv_blocks`` x ``kv_block_tokens`` token slots.
+    Plans that declare prefill- and decode-role pools deploy only with
+    ``decode_disagg=True``."""
 
     def __init__(self, plan: ExecutionPlan, params, cfg: ModelConfig,
                  transport: Optional[Transport] = None, *,
-                 packed: bool = True, telemetry=None, device=None):
+                 packed: bool = True, decode_ctx: int = 0,
+                 kv_blocks: int = 64, kv_block_tokens: int = 16,
+                 decode_disagg: bool = False, telemetry=None, device=None):
         self.device = resolve_device(device)
         have = _params_device(params)
         if have.type != self.device.type or (
@@ -415,6 +783,12 @@ class GraftExecutor:
         self.packed = packed
         self.telemetry = telemetry if telemetry is not None \
             else NULL_TELEMETRY
+        self.decode_ctx = int(decode_ctx)
+        self.kv_blocks = int(kv_blocks)
+        self.kv_block_tokens = int(kv_block_tokens)
+        # a role-annotated plan never lands on an executor that was not
+        # told to run the two-phase (prefill -> KV handoff -> decode) admit
+        self.decode_disagg = bool(decode_disagg)
         self.transport = transport if transport is not None \
             else InProcessTransport()
         self._handles: dict[tuple, PoolHandle] = {}
@@ -436,6 +810,8 @@ class GraftExecutor:
     def _spawn_pool(self, spec: PoolSpec) -> PoolHandle:
         svc = PoolService(FragmentInstance(
             self.params, self.cfg, spec, packed=self.packed,
+            decode_ctx=self.decode_ctx, kv_blocks=self.kv_blocks,
+            kv_block_tokens=self.kv_block_tokens,
             telemetry=self.telemetry))
         name = pool_endpoint(spec.key)
         self.transport.serve(name, svc.handle)
@@ -460,9 +836,11 @@ class GraftExecutor:
 
     def _deploy(self, plan: ExecutionPlan) -> None:
         pools = plan_pools(plan)
-        if any(sp.role != "both" for sp in pools.values()):
-            raise ValueError("plan declares prefill/decode-role pools; "
-                             "the decode path is not ported yet")
+        if not self.decode_disagg and any(
+                sp.role != "both" for sp in pools.values()):
+            raise ValueError(
+                "plan declares prefill/decode-role pools; construct the "
+                "executor with decode_disagg=True to deploy it")
         self.plan = plan
         self._pools = pools
         new_specs = []
@@ -499,12 +877,29 @@ class GraftExecutor:
         new_pools = plan_pools(new_plan)
         diff = diff_plans(self._pools, new_pools)
         removed = diff.by_kind("remove")
+        feeders = {pool_range(k) for k, sp in new_pools.items()
+                   if sp.role in ("both", "prefill")}
         for a in removed:                      # validate before mutating
-            q = int(self._handles[a.key].stats()["queue_len"])
-            if q:
+            s = self._handles[a.key].stats()
+            q = int(s["queue_len"])
+            dec = int(s.get("decode_active", 0) or 0)
+            if q or dec:
                 raise RuntimeError(
-                    f"cannot remove pool {a.key}: {q} queued requests — "
-                    f"drain before apply_plan()")
+                    f"cannot remove pool {a.key}: {q} queued requests, "
+                    f"{dec} resident decode streams — drain before "
+                    f"apply_plan()")
+            # removing the last prefill-capable pool of a range while a
+            # decode-role pool of that range survives would leave the
+            # decode pool with no feeder — refuse
+            if a.old is not None and a.old.role in ("both", "prefill"):
+                orphans = [k for k, sp in new_pools.items()
+                           if sp.role == "decode"
+                           and pool_range(k) == pool_range(a.key)]
+                if orphans and pool_range(a.key) not in feeders:
+                    raise RuntimeError(
+                        f"cannot remove pool {a.key}: decode pool(s) "
+                        f"{orphans} would be left with no prefill "
+                        "feeder over that range")
         for a in removed:
             self._retire_pool(self._handles.pop(a.key))
             self._bound.pop(a.key, None)
@@ -589,10 +984,35 @@ class GraftExecutor:
                         del stage_of[rid]
         return [r for r, _ in requests]
 
+    def next_rid(self) -> int:
+        """Allocate a fresh request id (shared with the serve() path so
+        ids stay unique when decode streams use this executor too)."""
+        return next(self._rid)
+
     def route_table(self) -> dict:
         """client -> [PoolKey, ...] for every routed client."""
         return {c: [h.key for h in chain]
                 for c, chain in self._chains.items()}
+
+    def pool_specs(self) -> dict:
+        """PoolKey -> PoolSpec of the currently deployed plan."""
+        return dict(self._pools)
+
+    def decode_pool_keys(self) -> list:
+        """Keys of the deployed decode-role pools (handoff receivers)."""
+        return [k for k, sp in self._pools.items() if sp.role == "decode"]
+
+    def prefill_pool_keys(self, rng: tuple) -> list:
+        """Keys of the pools that can run a disaggregated prefill for
+        block range ``rng`` (``(model, start, end)``): prefill-role
+        first, then dual-role."""
+        out = [k for k, sp in self._pools.items()
+               if sp.role in ("prefill", "both")
+               and pool_range(k) == tuple(rng)]
+        return sorted(out, key=lambda k: self._pools[k].role != "prefill")
+
+    def handle(self, key: tuple) -> PoolHandle:
+        return self._handles[key]
 
     # ------------------------------------------------------------- stats
     def drain(self) -> int:

@@ -129,3 +129,168 @@ def check_against_monolithic(cfg, params, reqs, *, atol=5e-5, rtol=1e-3):
         np.testing.assert_allclose(req.result.float().numpy(),
                                    want.float().cpu().numpy(),
                                    atol=atol, rtol=rtol)
+
+
+# ---------------------------------------------------------------------------
+# decode: paged-KV continuous batching vs the unbatched reference
+# ---------------------------------------------------------------------------
+
+def decode_plan(cfg, book, frags, *, batch: int = 4):
+    """Single full-range pool — the decode topology (the paged cache
+    lives pool-side, so decode needs one pool spanning the model)."""
+    flat = [dataclasses.replace(f, p=0) for f in frags]
+    return mixed_depth_plan(cfg, book, flat, s=0, batch=batch)
+
+
+def disagg_plan(cfg, book, frags, *, batch: int = 4):
+    """The decode topology split across roles: the full-range pool is
+    re-roled to prefill and a decode-role pool of the same range rides
+    along (``ExecutionPlan.with_disagg``) — prompt prefill runs on one
+    pool, the KV blocks cross the transport, and the decode pool owns
+    the resident streams."""
+    from repro_torch.models import n_fragment_units
+    plan = decode_plan(cfg, book, frags, batch=batch)
+    return plan.with_disagg(cfg.name, n_fragment_units(cfg), batch=batch)
+
+
+def reference_decode(cfg, params, tokens, max_new: int, *,
+                     margins: Optional[list] = None) -> list:
+    """Unbatched greedy decode: prefill + one token at a time, no cache
+    manager — THE numerics the serving path must reproduce exactly.
+
+    ``margins``, if given, receives the top-1 minus top-2 logit gap at
+    each generated position, so a mismatch can be told from a near-tie.
+    """
+    from repro_torch.models.decode import decode_step, prefill
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.asarray(tokens, np.int32).reshape(-1),
+                           device=dev)
+    ctx = int(toks.shape[0]) + max_new
+
+    def pick(logits) -> int:
+        row = logits[0, -1].float()
+        if margins is not None:
+            top = torch.topk(row, 2).values
+            margins.append(float(top[0] - top[1]))
+        return int(torch.argmax(row))
+
+    logits, cache = prefill(params, cfg, toks[None], cache_seq=ctx)
+    out = [pick(logits)]
+    while len(out) < max_new:
+        step = torch.tensor([[out[-1]]], dtype=torch.int32, device=dev)
+        logits, cache = decode_step(params, cfg, cache, step)
+        out.append(pick(logits))
+    return out
+
+
+def check_decode_against_reference(cfg, params, served: list) -> None:
+    """``served``: [(ServeRequest, max_new), ...] with ``out_tokens``
+    filled in. Greedy decode must match the reference token-for-token."""
+    for req, max_new in served:
+        want = reference_decode(cfg, params, req.tokens, max_new)
+        got = list(req.out_tokens or [])
+        assert got == want, (
+            f"decode mismatch for {req.client}: served {got} != "
+            f"reference {want}")
+
+
+def drive_decode(ex, prompts, max_new: int, *, disagg: bool = False,
+                 abort_at: Optional[dict] = None) -> dict:
+    """Serve greedy decode streams through an executor's pool handles.
+
+    ``prompts``: [(client, tokens), ...]; every stream generates
+    ``max_new`` tokens. Streams are admitted one at a time, in order, at
+    step boundaries while the decode pool has free slots — with
+    ``disagg``, each first runs ``prefill_export`` on the prefill-role
+    pool and its KV blocks ride the ``decode_admit`` hop to the
+    decode-role pool; otherwise the full-range pool prefills for itself.
+    The batch then steps until every stream is done. ``abort_at``
+    ({stream index: step}) aborts a resident stream with
+    ``decode_abort`` once that many batch steps have run; the slot it
+    frees admits the next stream while the others are mid-decode. Every
+    stream shares prompt prefixes under one reuse signature, the model's
+    full block range.
+
+    It serves tests and smokes and is not the server: it has no
+    shed policy and no SLO logic (TTFT/TPOT deadlines), which belong to
+    the server runtime's slice.
+
+    Returns ``{"tokens": [list or None per stream (None = aborted)],
+    "aborted": stream indices aborted, "steps": batch steps,
+    "mid_admits": streams admitted while others were mid-decode,
+    "handoffs": KV handoffs, "admit_s"/"step_s": host seconds spent
+    admitting/stepping}``.
+    """
+    import time
+
+    from repro_torch.models import n_fragment_units
+    full = sig = (ex.cfg.name, 0, n_fragment_units(ex.cfg))
+    if disagg:
+        dkey = ex.decode_pool_keys()[0]
+        pre = ex.handle(ex.prefill_pool_keys(full)[0])
+    else:
+        dkey = full
+    dec = ex.handle(dkey)
+    free = dec.stats()["decode_free_slots"]
+    abort_at = dict(abort_at or {})
+    out: list = [None] * len(prompts)
+    rid_of: dict = {}                       # stream index -> rid
+    resident: dict = {}                     # rid -> stream index
+    todo = list(range(len(prompts)))
+    aborted: list = []
+    steps = mid = handoffs = 0
+    t_admit = t_step = 0.0
+    while todo or resident:
+        while todo and free > 0:
+            i = todo[0]
+            client, toks = prompts[i]
+            rid = ex.next_rid()
+            t0 = time.perf_counter()
+            handoff = None
+            if disagg:
+                pr = pre.prefill_export(rid, client, toks, sig=sig)
+                if not pr.get("exported"):
+                    raise RuntimeError(f"stream {i}: prefill refused: "
+                                       f"{pr.get('reason')}")
+                handoff = pr["kv"]
+            r = dec.decode_admit(rid, client, toks, max_new, sig=sig,
+                                 handoff=handoff)
+            t_admit += time.perf_counter() - t0
+            if not r.get("admitted"):
+                if r.get("reason") in ("no_slot", "kv_oom") and resident:
+                    break                   # retry at the next boundary
+                raise RuntimeError(f"stream {i}: admission refused: "
+                                   f"{r.get('reason')}")
+            todo.pop(0)
+            handoffs += handoff is not None
+            mid += bool(resident) and steps > 0
+            rid_of[i] = rid
+            if r.get("done"):
+                out[i] = list(r["tokens"])
+            else:
+                resident[rid] = i
+                free -= 1
+        if not resident:
+            continue
+        t0 = time.perf_counter()
+        rep = dec.decode_step()
+        t_step += time.perf_counter() - t0
+        steps += 1
+        for ev in rep["events"]:
+            if ev.get("done"):
+                if ev.get("oom"):
+                    raise RuntimeError(f"stream {resident[ev['rid']]}: KV "
+                                       "arena out of blocks mid-decode")
+                out[resident.pop(ev["rid"])] = list(ev["tokens"])
+        free = rep["free_slots"]
+        for i, at in list(abort_at.items()):
+            if steps >= at and rid_of.get(i) in resident:
+                if not dec.decode_abort(rid_of[i]):
+                    raise RuntimeError(f"stream {i}: abort found no stream")
+                del resident[rid_of[i]]
+                del abort_at[i]
+                aborted.append(i)
+                free += 1
+    return {"tokens": out, "aborted": aborted, "steps": steps,
+            "mid_admits": mid,
+            "handoffs": handoffs, "admit_s": t_admit, "step_s": t_step}

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each Hopper kernel against its plain
-PyTorch version on the card, and the serving path launching the kernels.
+PyTorch version on the card, and the serving paths (one-shot and decode)
+launching the kernels.
 
 Marked ``gpu``; every test asks the ``cuda`` fixture for the card and
 skips where there is none, so every pytest worker collects the same
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
@@ -107,3 +109,98 @@ def test_executor_on_the_card_runs_the_kernels(cuda):
     assert fa.LAUNCHES["flash_attention"] > 0
     assert fa.LAUNCHES["flash_attention_lse"] > 0
     check_against_monolithic(cfg, params, reqs)
+
+
+# ------------------------------------------------------- decode attention
+
+def _decode_case(device, dtype, B, Sk, H, KV, hd, q_pos, ring, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=g).to(device=device, dtype=dtype)
+               for s in ((B, 1, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    kv_pos = np.full((B, Sk), -1, np.int32)
+    for b, qp in enumerate(q_pos):
+        lo = max(0, qp - Sk + 1) if ring else 0
+        for p in range(lo, min(qp + 1, lo + Sk)):
+            kv_pos[b, p % Sk if ring else p] = p
+    return (q, k, v, torch.tensor(q_pos, dtype=torch.int32, device=device),
+            torch.from_numpy(kv_pos).to(device))
+
+
+DECODE_CASES = [  # B, Sk, H, KV, hd, q_pos, ring, window
+    (2, 256, 4, 2, 32, [60, 97], False, 0),
+    (3, 128, 8, 8, 64, [60, 97, 127], False, 100),
+    (1, 512, 16, 2, 64, [400], False, 100),
+    (3, 131, 8, 2, 128, [130, 64, 0], False, 0),      # ragged Sk
+    (3, 96, 16, 8, 128, [300, 95, 40], True, 0),      # ring, -1 holes
+    (4, 512, 16, 8, 128, [511, 300, 64, 5], False, 0),  # main path
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_kernel_matches_plain_version(cuda, dtype, case):
+    B, Sk, H, KV, hd, q_pos, ring, window = case
+    q, k, v, qp, kp = _decode_case(cuda, dtype, B, Sk, H, KV, hd, q_pos, ring)
+    atol, rtol = TOL[dtype]
+    got = da.decode_attention(q, k, v, qp, kp, window=window)
+    want = da.decode_attention_plain(q, k, v, qp, kp, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_decode_kernel_row_does_not_depend_on_batch_or_capacity(cuda):
+    """Fixed-length splits: a row's output is bit-identical alone, in a
+    batch of 4, and against a larger cache whose extra slots are empty."""
+    q, k, v, qp, kp = _decode_case(cuda, torch.float32, 4, 512, 16, 8, 128,
+                                   [200, 300, 64, 5], False)
+    full = da.decode_attention(q, k, v, qp, kp)
+    alone = da.decode_attention(q[1:2], k[1:2, :301], v[1:2, :301], qp[1:2],
+                                kp[1:2, :301].contiguous())
+    assert torch.equal(full[1:2], alone)
+
+
+def test_decode_wrapper_counts_launches_and_refuses(cuda):
+    q, k, v, qp, kp = _decode_case(cuda, torch.bfloat16, 2, 70, 4, 2, 64,
+                                   [69, 30], False)
+    before = da.LAUNCHES["decode_attention"]
+    da.decode_attention(q, k, v, qp, kp)
+    da.decode_attention_plain(q, k, v, qp, kp)
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    with pytest.raises(ValueError, match="on cpu"):
+        da.decode_attention(q, k, v, qp, kp.cpu())       # device mix
+    with pytest.raises(ValueError, match="head_dim"):
+        da.decode_attention(q[..., :48], k[..., :48].contiguous(),
+                            v[..., :48].contiguous(), qp, kp)
+    with pytest.raises(TypeError):
+        da.decode_attention(q.half(), k.half(), v.half(), qp, kp)
+    assert da.LAUNCHES["decode_attention"] == before + 1
+
+
+def test_decode_serving_on_the_card_runs_the_kernels(cuda):
+    """A tiny continuous-batching decode through GraftExecutor on the
+    card (an abort frees a slot for a mid-decode admission) launches the
+    decode kernel, and its greedy tokens equal the port's unbatched
+    reference."""
+    from repro_torch.core import Fragment
+    from repro_torch.serving import GraftExecutor
+    from repro_torch.serving.smoke import (decode_plan, drive_decode,
+                                           reference_decode, smoke_setup)
+
+    cfg, book, params = smoke_setup("qwen3-1.7b", n_layers=3)
+    frags = [Fragment(cfg.name, 0, 50.0, 30.0, client=f"c{i}")
+             for i in range(2)]
+    rng = np.random.RandomState(0)
+    prompts = [(f"c{i % 2}", rng.randint(0, cfg.vocab_size, n)
+                .astype(np.int32)) for i, n in enumerate((17, 40, 9))]
+    da.reset_launches()
+    fa.reset_launches()
+    with GraftExecutor(decode_plan(cfg, book, frags, batch=2), params, cfg,
+                       decode_ctx=64, kv_block_tokens=8) as ex:
+        r = drive_decode(ex, prompts, 6, abort_at={0: 2})
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] > 0
+    assert fa.LAUNCHES["flash_attention_lse"] > 0        # admission prefill
+    assert r["aborted"] == [0] and r["mid_admits"] >= 1
+    for (_, toks), got in list(zip(prompts, r["tokens"]))[1:]:
+        assert got == reference_decode(cfg, params, toks, 6)
