@@ -6,14 +6,18 @@ CUDA card and ``nvcc``; it fails (non-zero exit, no result line) when
 there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 
 1. device  — the card's name, count and power limit; builds the CUDA
-   kernels from ``src/repro_torch/kernels/csrc`` (with ``-Xptxas -v``).
+   kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, all started together, with ``-Xptxas -v``).
 2. kernels — each kernel wrapper on the card against its plain PyTorch
    version on the same inputs: main-path shapes and edge shapes (prime
    S, sliding window, non-causal, GQA groups 1 and 4, head_dim 128/64/32,
    segments starting mid-tile; for the decode kernel ragged Sk, a
-   ring-buffer kv_pos with -1 holes, windows), in float32 and bfloat16;
-   then times the kernel, the plain version and a PyTorch library call
-   at the main-path shapes with CUDA events.
+   ring-buffer kv_pos with -1 holes, windows; for the two recurrent scans
+   T = 1, a prime T, a T that is not a multiple of 32, a nonzero input
+   state and decays far past the clamp, outputs and final states), in
+   float32 and bfloat16; then times the kernel, the plain version and a
+   PyTorch library call (where one exists) at the main-path shapes with
+   CUDA events.
 3. serve   — full-width qwen3-1.7b (all 28 layers, random weights from a
    seeded generator on the card) through ``GraftPlanner.plan`` and
    ``GraftExecutor.serve`` over an ``InProcessTransport``, then
@@ -21,8 +25,6 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    pool and a second wave; both in float32, every result held against
    the port's monolithic forward; then waves in bfloat16 for timing, the
    last one under ``torch.profiler`` (device time by kernel group).
-   The kernels' launch counters are zeroed just before the serve waves
-   and read just after; each must be > 0.
 4. decode  — full-width qwen3-1.7b (28 layers) greedy decode through the
    paged-KV continuous batch (``decode_plan``, batch 4, decode_ctx 512,
    16-token KV blocks) in float32 with TF32 off: 8 streams of 64-320
@@ -36,16 +38,32 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    the transport -> decode pool): tokens equal the single-pool run, KV
    handoffs arrive, no stream is resident on the prefill pool. Then a
    timed bfloat16 run and one decode step under ``torch.profiler``.
+5. hybrid  — full-width hymba-1.5b (32 layers: attention with window
+   1024 beside 50 SSM heads of 64 x 16 state) in float32: the serve
+   phase's path on the pad-to-bucket pools (hybrid is not packable), six
+   prompts of 128-1536 tokens, one past the window; then the decode
+   phase's streams in both plans. Hybrid shares no prefix: the arena
+   reports no hit and the decode pool takes no handoff blocks (it
+   recomputes each prompt). ``ssm_scan`` must launch on the serve path
+   and in the decode admissions.
+6. ssm     — full-width rwkv6-7b (32 layers, 64 WKV heads of 64) in
+   float32 through the serve phase's path (pad-to-bucket pools, prompts
+   of 128-512 tokens); then one prompt's ``prefill`` and 8 teacher-forced
+   ``decode_step``s held against the forward at those positions (the
+   WKV state the scan kernel hands to decode); then bfloat16 waves, the
+   last one profiled. ``wkv6_scan`` must launch.
 
-The launch counts in the kernels' record are the sums over the serve
-waves and the float32 decode runs (single-pool and disaggregated), each
-path's counters zeroed just before it and read just after. The line
-before the last is ``nvidia-smi``'s name and power limit, the one before
-it the kernels' JSON record, and the last line the result:
+Each model is freed before the next one loads. The launch counts in the
+kernels' record are the sums over the serving paths: the serve waves
+and the float32 decode runs (single-pool and disaggregated) of each
+model, each path's counters zeroed just before it and read just after.
+The line before the last is ``nvidia-smi``'s name and power limit, the
+one before it the kernels' JSON record, and the last line the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -66,6 +84,9 @@ LSE_ATOL = 1e-4               # lse is fp32 in both versions
 # fragment results against the monolithic forward, float32: the
 # reference's own tolerance (serving/smoke.py::check_against_monolithic)
 SERVE_ATOL, SERVE_RTOL = 5e-5, 1e-3
+# prefill + teacher-forced decode steps against the full forward, float32:
+# tests/test_models.py's multi-step decode bound
+STEP_ATOL, STEP_RTOL = 1e-4, 1e-3
 # a shared pool's reply carries full-vocab logits for the whole wave:
 # 151,936 x 4 B = 0.6 MB per fp32 token, past the transport's 1 GiB
 # default frame cap for a wave of ~2k prompt tokens
@@ -171,6 +192,7 @@ def kernel_phase(device) -> dict:
                             LSE_ATOL, 0.0)
                 worst["flash_attention_lse"][(dname, label)] = e
     worst["decode_attention"] = decode_kernel_cases(device, gen)
+    worst.update(scan_kernel_cases(device, gen))
     return worst
 
 
@@ -233,6 +255,99 @@ def decode_kernel_cases(device, gen) -> dict:
     return worst
 
 
+def ssm_inputs(gen, dtype, device, B, T, H, hd, N, dt_scale):
+    """x, Bm, Cm in ``dtype``; dt (softplus, scaled), A (< 0) and a
+    nonzero state in float32, as the hymba block hands them over."""
+    import torch
+    x = rand(gen, (B, T, H, hd), torch.float32, device) * 0.5
+    dt = torch.nn.functional.softplus(
+        rand(gen, (B, T, H), torch.float32, device)) * dt_scale
+    A = -rand(gen, (H,), torch.float32, device).abs() * 4
+    Bm = rand(gen, (B, T, N), torch.float32, device) * 0.5
+    Cm = rand(gen, (B, T, N), torch.float32, device) * 0.5
+    h0 = rand(gen, (B, H, hd, N), torch.float32, device) * 0.1
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), h0
+
+
+def wkv_inputs(gen, dtype, device, B, T, H, hd, w):
+    """r, k, v in ``dtype``; the decay w (random in (0.1, 0.95), or the
+    constant given), u and a nonzero state in float32, as the rwkv6
+    time-mix hands them over."""
+    import torch
+    r, k, v = (rand(gen, (B, T, H, hd), torch.float32, device) * 0.5
+               for _ in range(3))
+    if w is None:
+        w = torch.sigmoid(rand(gen, (B, T, H, hd), torch.float32,
+                               device)) * 0.85 + 0.1
+    else:
+        w = torch.full((B, T, H, hd), float(w), device=device)
+    u = rand(gen, (H, hd), torch.float32, device) * 0.1
+    s0 = rand(gen, (B, H, hd, hd), torch.float32, device) * 0.1
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
+
+
+# (label, B, T, H, hd, N, dt scale): the hymba main path, the shapes of
+# tests/test_kernels.py::test_ssm_scan, T = 1, a prime T, a T that is
+# not a multiple of 32, and dt * A far below the -2.5 clamp; every case
+# starts from a nonzero state
+SSM_MAIN = ("main path", 1, 512, 50, 64, 16, 0.2)
+SSM_CASES = [
+    SSM_MAIN,
+    ("kernel-test shape", 1, 32, 1, 16, 8, 0.2),
+    ("kernel-test shape", 2, 128, 3, 32, 16, 0.2),
+    ("kernel-test shape", 2, 96, 2, 64, 16, 0.2),
+    ("T = 1", 1, 1, 50, 64, 16, 0.2),
+    ("prime T", 2, 37, 4, 64, 16, 0.2),
+    ("T = 100", 1, 100, 8, 64, 16, 0.2),
+    ("extreme decay", 1, 64, 2, 16, 8, 50.0),
+]
+# (label, B, T, H, hd, w): the rwkv6 main path, the shapes of
+# tests/test_kernels.py::test_wkv6, the same ragged lengths, and
+# tests/test_kernels.py::test_wkv6_extreme_decay's w = 1e-6
+WKV_MAIN = ("main path", 1, 512, 64, 64, None)
+WKV_CASES = [
+    WKV_MAIN,
+    ("kernel-test shape", 1, 32, 1, 16, None),
+    ("kernel-test shape", 2, 128, 3, 32, None),
+    ("kernel-test shape", 2, 96, 2, 64, None),
+    ("T = 1", 1, 1, 64, 64, None),
+    ("prime T", 2, 37, 4, 64, None),
+    ("T = 100", 1, 100, 8, 64, None),
+    ("extreme decay", 1, 64, 2, 16, 1e-6),
+]
+
+
+def scan_kernel_cases(device, gen) -> dict:
+    """Kernels 6 and 7 against their plain versions (the chunked matmul
+    form with the JAX chunk rule): the output and the final state."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import wkv6_scan as wk
+    worst = {"ssm_scan": {}, "wkv6_scan": {}}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        atol, rtol = TOL[dname]
+        for label, B, T, H, hd, N, dts in SSM_CASES:
+            args = ssm_inputs(gen, dtype, device, B, T, H, hd, N, dts)
+            y, h = ss.ssm_scan(*args)
+            y2, h2 = ss.ssm_scan_plain(*args)
+            torch.cuda.synchronize()
+            tag = f"{dname} {label} {(B, T, H, hd, N)} dt x{dts:g}"
+            worst["ssm_scan"][(dname, label, T)] = max(
+                check_close(f"ssm_scan y {tag}", y, y2, atol, rtol),
+                check_close(f"ssm_scan state {tag}", h, h2, atol, rtol))
+        for label, B, T, H, hd, w in WKV_CASES:
+            args = wkv_inputs(gen, dtype, device, B, T, H, hd, w)
+            o, st = wk.wkv6_scan(*args)
+            o2, st2 = wk.wkv6_scan_plain(*args)
+            torch.cuda.synchronize()
+            tag = f"{dname} {label} {(B, T, H, hd)} w {w or 'random'}"
+            worst["wkv6_scan"][(dname, label, T)] = max(
+                check_close(f"wkv6_scan o {tag}", o, o2, atol, rtol),
+                check_close(f"wkv6_scan state {tag}", st, st2, atol, rtol))
+    return worst
+
+
 # ~50 ms of device spin at the H100's ~2 GHz SM clock: the timed
 # launches queue up behind it
 SLEEP_CYCLES = 100_000_000
@@ -267,6 +382,27 @@ def time_ms(fn, iters: int = 20) -> tuple:
         fail(f"timing: enqueueing {iters} calls took {host:.1f} ms, longer "
              f"than the {c.elapsed_time(a):.1f} ms device sleep")
     return a.elapsed_time(b) / iters, host / iters
+
+
+def profiled_device_ms(fn) -> float:
+    """Device ms of one call of ``fn`` (after 3 warm-up calls): the sum of
+    its kernels' device times under ``torch.profiler``. For a plain
+    version of many small ops, whose queued launches would fill the
+    launch queue behind ``time_ms``'s device sleep and stall the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(ev, "self_device_time_total", 0.0))
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        fail("profiled_device_ms: the profiler saw no device time")
+    return us / 1e3
 
 
 def rotating(fn, copies):
@@ -345,6 +481,7 @@ def timing_phase(device) -> dict:
               f"{nbytes} B, {flops:.3e} FLOP over {pairs} valid pairs); "
               "device times")
     out["decode_attention"] = time_decode(device, gen)
+    out.update(time_scans(device, gen))
     return out
 
 
@@ -393,17 +530,84 @@ def time_decode(device, gen) -> dict:
     return r
 
 
+def time_scans(device, gen) -> dict:
+    """Rows 6 and 7 at their main-path shapes (bf16, as served), L2 warm
+    as for kernels fed by the projections just before them. Bound: the
+    bytes (each input once, the output and the final state once) against
+    the FLOPs of the chunked matmul form the TPU kernels run (chunk 32),
+    at the bf16 tensor-core peak. The plain versions' device time is
+    their kernels' sum under the profiler (``profiled_device_ms``). No
+    single PyTorch call computes either scan, so there is no library
+    time."""
+    import torch
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import wkv6_scan as wk
+    from repro_torch.kernels.ref import pick_block
+
+    out = {}
+    _, B, T, H, hd, N, dts = SSM_MAIN
+    args = ssm_inputs(gen, torch.bfloat16, device, B, T, H, hd, N, dts)
+    C = pick_block(T, 32)
+    n_chunk = -(-T // C)
+    # x and y bf16, dt fp32, A fp32, Bm and Cm bf16, state in and out fp32
+    nbytes = 2 * (2 * B * T * H * hd) + 4 * B * T * H + 4 * H \
+        + 2 * (2 * B * T * N) + 2 * (4 * B * H * hd * N)
+    # per (row, head, chunk): C h0, C B^T, scores x, and the state update
+    flops = 2.0 * B * H * n_chunk * C * (2 * N * hd + C * (N + hd))
+    out["ssm_scan"] = dict(shape=(B, T, H, hd, N), bytes=nbytes,
+                           flops=flops, run=lambda: ss.ssm_scan(*args),
+                           plain=lambda: ss.ssm_scan_plain(*args))
+    _, B, T, H, hd, w = WKV_MAIN
+    wargs = wkv_inputs(gen, torch.bfloat16, device, B, T, H, hd, w)
+    C = pick_block(T, 32)
+    n_chunk = -(-T // C)
+    # r, k, v and o bf16, w fp32, u fp32, state in and out fp32
+    nbytes = 4 * (2 * B * T * H * hd) + 4 * B * T * H * hd + 4 * H * hd \
+        + 2 * (4 * B * H * hd * hd)
+    # per (row, head, chunk): r S, r k^T, scores v, and the state update
+    flops = 4.0 * B * H * n_chunk * C * hd * (hd + C)
+    out["wkv6_scan"] = dict(shape=(B, T, H, hd), bytes=nbytes, flops=flops,
+                            run=lambda: wk.wkv6_scan(*wargs),
+                            plain=lambda: wk.wkv6_scan_plain(*wargs))
+    for name, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
+                                             H100_BF16_FLOPS)
+        r["ms"], r["host_ms"] = time_ms(r.pop("run"))
+        r["plain_ms"] = profiled_device_ms(r.pop("plain"))
+        r["library_ms"] = None
+        print(f"  {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms (host "
+              f"{r['host_ms']:.4f} ms per call), plain {r['plain_ms']:.4f} "
+              f"ms (profiled), library none, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes']} B, {r['flops']:.3e} FLOP of "
+              "the chunked form); device times")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving the main path
 # ---------------------------------------------------------------------------
 
-def make_wave(cfg, frags, rng):
+def make_wave(cfg, frags, rng, *, lo=128, hi=512, n_long=0, exact=False):
+    """One request per fragment with lo..hi prompt tokens; the first
+    ``n_long`` prompts are longer than 1024 tokens (up to ``hi``). With
+    ``exact``, the prompts instead take the distinct lengths of
+    ``EXACT_LENGTHS`` in a random order: every pool then runs each
+    request alone at its own length, the monolithic forward's shapes."""
     import numpy as np
     from repro_torch.serving import ServeRequest
-    return [(ServeRequest(client=f.client,
-                          tokens=rng.randint(0, cfg.vocab_size,
-                                             int(rng.randint(128, 513)))
-                          .astype(np.int32)), f.p) for f in frags]
+    order = rng.permutation(EXACT_LENGTHS) if exact else None
+    reqs = []
+    for i, f in enumerate(frags):
+        if exact:
+            n = int(order[i])
+        elif i < n_long:
+            n = int(rng.randint(1025, hi + 1))
+        else:
+            n = int(rng.randint(lo, hi + 1))
+        reqs.append((ServeRequest(client=f.client,
+                                  tokens=rng.randint(0, cfg.vocab_size, n)
+                                  .astype(np.int32)), f.p))
+    return reqs
 
 
 def serve_wave(ex, reqs, label) -> float:
@@ -421,13 +625,48 @@ def serve_wave(ex, reqs, label) -> float:
     return wall
 
 
+# Six distinct powers of two (seq_bucket pads none of them, and no two
+# stack into one batch): the float32 waves of the recurrent families. On
+# the card a float32 cuBLAS product's rounding depends on its row count,
+# and random full-width hymba and rwkv6 amplify that with depth past the
+# serving tolerance (``rounding_sweep`` prints by how much); at the
+# forward's own shapes the served result must equal it.
+EXACT_LENGTHS = (64, 128, 256, 512, 1024, 2048)
+
+
 # substrings of cuBLAS/CUTLASS matmul kernel names
 MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
-# substrings of the port's attention kernels (csrc/*.cu)
+# substrings of the port's attention and scan kernels (csrc/*.cu)
 ATTENTION_NAMES = ("attn_fwd_kernel", "decode_attn_kernel",
                    "decode_combine_kernel")
+SCAN_NAMES = ("ssm_scan_kernel", "wkv6_scan_kernel")
+
+
+def launch_counters() -> list:
+    """Every kernel wrapper module's ``LAUNCHES`` dict."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import wkv6_scan as wk
+    return [fa, da, ss, wk]
+
+
+def reset_launches() -> None:
+    for m in launch_counters():
+        m.reset_launches()
+
+
+def read_launches() -> dict:
+    return {k: v for m in launch_counters() for k, v in m.LAUNCHES.items()}
+
+
+def free_device() -> None:
+    """Return the freed models' memory before the next one loads."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_run(label, run) -> float:
@@ -441,8 +680,8 @@ def profile_run(label, run) -> float:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run()
-    groups = {"attention kernels": 0.0, "matmul": 0.0, "memcpy/memset": 0.0,
-              "other kernels": 0.0}
+    groups = {"attention kernels": 0.0, "scan kernels": 0.0, "matmul": 0.0,
+              "memcpy/memset": 0.0, "other kernels": 0.0}
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -452,6 +691,8 @@ def profile_run(label, run) -> float:
         low = name.lower()
         if any(t in name for t in ATTENTION_NAMES):
             g = "attention kernels"
+        elif any(t in name for t in SCAN_NAMES):
+            g = "scan kernels"
         elif any(t in low for t in MATMUL_NAMES):
             g = "matmul"
         elif low.startswith(("memcpy", "memset")):
@@ -483,33 +724,39 @@ def check_results(cfg, params, reqs, label):
                 not torch.isfinite(r.float()).all():
             fail(f"{label}: {req.client} result {tuple(r.shape)} is not "
                  "finite logits of the expected shape")
-    check_against_monolithic(cfg, params, reqs, atol=SERVE_ATOL,
-                             rtol=SERVE_RTOL)
-    print(f"  {label}: {len(reqs)} results match the monolithic forward "
-          f"(atol {SERVE_ATOL:g}, rtol {SERVE_RTOL:g})")
+    worst = check_against_monolithic(cfg, params, reqs, atol=SERVE_ATOL,
+                                     rtol=SERVE_RTOL)
+    print(f"  {label}: {len(reqs)} results (prompt lengths "
+          f"{[len(r.tokens) for r, _ in reqs]}) match the monolithic forward "
+          f"(atol {SERVE_ATOL:g}, rtol {SERVE_RTOL:g}; largest |diff| "
+          f"{worst:.3e})")
 
 
-def serve_phase(device) -> dict:
-    """Serve the main path; returns the kernels' launch counts over the
-    two float32 waves."""
+def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
+                n_long=0, exact=False, after_fp32=None) -> dict:
+    """Serve one model's path at full width; returns the kernels' launch
+    counts over the two float32 waves. ``need`` names the kernels that
+    must have launched there; ``exact`` gives the float32 waves
+    ``EXACT_LENGTHS`` prompts (the bfloat16 waves keep lo..hi with
+    ``n_long`` long ones); ``after_fp32(cfg, params)`` runs further
+    float32 checks before the float32 model is freed."""
     import numpy as np
     import torch
     from repro_torch.core import Fragment, GraftPlanner
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving import GraftExecutor, InProcessTransport
     from repro_torch.serving.smoke import mixed_depth_plan, smoke_setup
 
     t0 = time.perf_counter()
-    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
-                                    dtype="float32", seq_len=512,
-                                    device=device)
+    cfg, book, params = smoke_setup(arch, full_width=True, dtype="float32",
+                                    seq_len=512, device=device)
     torch.cuda.synchronize()
-    print(f"  {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads} heads / "
-          f"{cfg.n_kv_heads} kv, head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}, {cfg.n_layers} layers, {cfg.dtype}; "
+    print(f"  {cfg.name} ({cfg.family}): d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, head_dim "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.n_layers} layers, window {cfg.sliding_window}, {cfg.dtype}; "
           f"init {time.perf_counter() - t0:.1f} s")
     L = cfg.n_layers
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     points = sorted(int(p) for p in rng.choice(L, size=6, replace=False))
     frags = [Fragment(cfg.name, p=p, t=float(40.0 + 40.0 * rng.rand()),
                       q=30.0, client=f"c{i}") for i, p in enumerate(points)]
@@ -517,23 +764,25 @@ def serve_phase(device) -> dict:
     s = L // 2
     frags2 = [Fragment(cfg.name, min(f.p, s), f.t, f.q, client=f.client)
               for f in frags]
+    wave = dict(hi=hi, n_long=n_long)
+    wave32 = dict(wave, exact=exact)
     plan = GraftPlanner(book).plan(frags)
-    fa.reset_launches()                     # the main path starts here
+    reset_launches()                        # the main path starts here
     with GraftExecutor(plan, params, cfg,
                        InProcessTransport(max_frame_bytes=MAX_FRAME_BYTES),
                        device=device) as ex:
-        reqs1 = make_wave(cfg, frags, rng)
+        reqs1 = make_wave(cfg, frags, rng, **wave32)
         serve_wave(ex, reqs1, "wave 1 (planner plan)")
-        after1 = dict(fa.LAUNCHES)
+        after1 = read_launches()
         diff = ex.apply_plan(mixed_depth_plan(cfg, book, frags2, s=s,
                                               batch=8))
         chains = {c: [k[1:] for k in keys]
                   for c, keys in ex.route_table().items()}
         print(f"  apply_plan: kept {diff.n_kept} pools; chains {chains}")
-        reqs2 = make_wave(cfg, frags2, rng)
+        reqs2 = make_wave(cfg, frags2, rng, **wave32)
         serve_wave(ex, reqs2, "wave 2 (re-aligned, depth-2 chains)")
         torch.cuda.synchronize()
-        launches = dict(fa.LAUNCHES)        # ... and ends here
+        launches = read_launches()          # ... and ends here
         stats = ex.pool_stats()
     per_wave = [after1, {k: launches[k] - after1[k] for k in launches}]
     print(f"  kernel launches on the serving path: {launches} (per wave: "
@@ -542,34 +791,113 @@ def serve_phase(device) -> dict:
         print(f"    pool {key[1:]}: batches {st['n_batches']}, real tokens "
               f"{st['real_tokens']}, pad tokens {st['pad_tokens']}, "
               f"packed {st['packed']}, device {st['device']}")
-    if not all(n > 0 for n in launches.values()):
+    if not all(launches[n] > 0 for n in need):
         fail(f"a kernel of the serving path never launched: {launches}")
     if not any(len(c) == 2 for c in chains.values()):
         fail("the re-aligned plan has no depth-2 chain")
     check_results(cfg, params, reqs1, "wave 1")
     check_results(cfg, params, reqs2, "wave 2")
+    if after_fp32 is not None:
+        after_fp32(cfg, params)
+    del params
+    free_device()
 
     # the same path in bfloat16, timed (a warm-up wave first)
-    cfg16, _, params16 = smoke_setup("qwen3-1.7b", full_width=True,
+    cfg16, _, params16 = smoke_setup(arch, full_width=True,
                                      dtype="bfloat16", seq_len=512,
                                      device=device)
-    fa.reset_launches()
+    reset_launches()
     with GraftExecutor(mixed_depth_plan(cfg16, book, frags2, s=s, batch=8),
                        params16, cfg16,
                        InProcessTransport(max_frame_bytes=MAX_FRAME_BYTES),
                        device=device) as ex:
-        serve_wave(ex, make_wave(cfg16, frags2, rng), "bf16 warm-up wave")
-        reqs3 = make_wave(cfg16, frags2, rng)
+        serve_wave(ex, make_wave(cfg16, frags2, rng, **wave),
+                   "bf16 warm-up wave")
+        reqs3 = make_wave(cfg16, frags2, rng, **wave)
         serve_wave(ex, reqs3, "bf16 wave")
-        reqs4 = make_wave(cfg16, frags2, rng)
+        reqs4 = make_wave(cfg16, frags2, rng, **wave)
         profile_run("bf16 profiled wave",
                     lambda: serve_wave(ex, reqs4, "bf16 profiled wave"))
-    launches16 = dict(fa.LAUNCHES)
-    print(f"  kernel launches, bf16 waves: {launches16}")
+    print(f"  kernel launches, bf16 waves: {read_launches()}")
     for req, _ in reqs3:
         if not torch.isfinite(req.result.float()).all():
             fail(f"bf16 wave: {req.client} result is not finite")
     return launches
+
+
+def rounding_sweep(depths):
+    """An ``after_fp32`` hook: for the first ``d`` blocks of the model,
+    each ``d`` in ``depths``, print how far one 300-token prompt's logits
+    move when the same prompt runs in a padded batch (3 rows of 512
+    tokens) instead of alone: the worst |difference| over the serving
+    tolerance (atol + rtol |forward|). A float32 product's rounding
+    depends on its row count; this shows how much of that the model
+    amplifies with depth. Informational: it fails nothing."""
+    def run(cfg, params):
+        import dataclasses
+
+        import numpy as np
+        import torch
+        from repro_torch.models import forward, run_fragment
+        from repro_torch.models.transformer import slice_blocks
+        dev = params["embed"].device
+        S, T, rows = 300, 512, 3
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (1, S)).astype(np.int32)).to(dev)
+        batch = torch.cat([toks, toks.new_zeros((1, T - S))], 1) \
+            .repeat(rows, 1)
+        for d in depths:
+            cut = dataclasses.replace(cfg, n_layers=d)
+            head = dict(params, blocks=slice_blocks(params["blocks"], 0, d))
+            want = forward(head, cut, toks)[0]
+            got = run_fragment(head, cut, batch, 0, d)[rows // 2, :S]
+            diff = (got - want).abs()
+            ratio = float((diff / (SERVE_ATOL + SERVE_RTOL
+                                   * want.abs())).max())
+            print(f"  rounding, {d} of {cfg.n_layers} layers: padded batch "
+                  f"vs alone, max |diff| {float(diff.max()):.3e}, worst "
+                  f"|diff| / tolerance {ratio:.3f} (logit std "
+                  f"{float(want.std()):.3f})")
+    return run
+
+
+# layers of rwkv6-7b (of 32, full width) for the prefill + decode steps
+# check: the steps run at 1 row, the forward at 308, so cuBLAS rounds
+# them differently, and past ~8 layers random rwkv6 amplifies that past
+# the bound (``rounding_sweep``)
+STEP_LAYERS = 8
+
+
+def ssm_steps_check(cfg, params) -> None:
+    """One prompt's prefill, then 8 teacher-forced decode steps, against
+    the forward at those positions, in the first ``STEP_LAYERS`` blocks:
+    holds the final WKV state the scan kernel returns and decode
+    carries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import slice_blocks
+    from repro_torch.serving.smoke import check_steps_against_forward
+    cut = dataclasses.replace(cfg, n_layers=STEP_LAYERS)
+    head = dict(params, blocks=slice_blocks(params["blocks"], 0,
+                                            STEP_LAYERS))
+    toks = np.random.RandomState(5).randint(0, cfg.vocab_size, 300 + 8)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        worst = check_steps_against_forward(cut, head, toks, 8,
+                                            atol=STEP_ATOL, rtol=STEP_RTOL)
+    except AssertionError as e:
+        fail(f"rwkv6 prefill + decode steps disagree with the forward: {e}")
+    torch.cuda.synchronize()
+    n = read_launches()["wkv6_scan"]
+    print(f"  {STEP_LAYERS} of {cfg.n_layers} layers: prefill of 300 tokens "
+          f"+ 8 decode steps equal the forward at those positions (atol "
+          f"{STEP_ATOL:g}, rtol {STEP_RTOL:g}; largest |diff| {worst:.3e}); "
+          f"wkv6_scan launches {n}; {time.perf_counter() - t0:.1f} s")
+    if n <= 0:
+        fail("the prefill never launched wkv6_scan")
 
 
 # ---------------------------------------------------------------------------
@@ -646,19 +974,24 @@ def run_decode(cfg, book, params, prompts, *, disagg, device, label):
     return r, stats, wall
 
 
-def decode_phase(device) -> dict:
-    """Serve the decode path; returns the kernels' launch counts over the
-    two float32 runs (single-pool, then disaggregated)."""
+def decode_phase(device, arch="qwen3-1.7b", *,
+                 need=("decode_attention", "flash_attention_lse")) -> dict:
+    """Serve one model's decode path; returns the kernels' launch counts
+    over the two float32 runs (single-pool, then disaggregated). ``need``
+    names the kernels that must have launched there. A family whose
+    arena shares prompt prefixes (dense) must show prefix hits and KV
+    handoffs taken in; hybrid shares nothing (the arena does not hold
+    its scan state): no hit, and its decode pool ignores the handoff's
+    blocks and recomputes the prompt."""
     import numpy as np
     import torch
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.serving.smoke import reference_decode, smoke_setup
 
     t0 = time.perf_counter()
-    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
+    cfg, book, params = smoke_setup(arch, full_width=True,
                                     dtype="float32", seq_len=DECODE_CTX,
                                     device=device)
+    shares = cfg.family in ("dense", "moe")
     torch.cuda.synchronize()
     print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, "
           f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; decode_ctx "
@@ -678,14 +1011,13 @@ def decode_phase(device) -> dict:
           f"; smallest top-1 minus top-2 logit margin per stream "
           f"{[f'{m:.4g}' for m in worst]}, over all {min(worst):.4g}")
 
-    fa.reset_launches()                     # the decode path starts here
-    da.reset_launches()
+    reset_launches()                        # the decode path starts here
     single, stats, _ = run_decode(cfg, book, params, prompts, disagg=False,
                                   device=device, label="single pool, fp32")
     split, dstats, _ = run_decode(cfg, book, params, prompts, disagg=True,
                                   device=device, label="disaggregated, fp32")
     torch.cuda.synchronize()
-    launches = {**fa.LAUNCHES, **da.LAUNCHES}   # ... and ends here
+    launches = read_launches()              # ... and ends here
     print(f"  kernel launches on the decode path: {launches}")
 
     for i, got in enumerate(single["tokens"]):
@@ -699,25 +1031,31 @@ def decode_phase(device) -> dict:
     if single["aborted"] != list(ABORT) or single["mid_admits"] < 1:
         fail(f"the abort or the mid-decode admission did not happen: "
              f"{single['aborted']}, {single['mid_admits']}")
-    if stats["both"]["kv"]["prefix_hits"] < 1:
-        fail("no prefix hit in the single-pool arena")
+    hits = stats["both"]["kv"]["prefix_hits"]
+    if (hits < 1) if shares else (hits != 0):
+        fail(f"{hits} prefix hits in the single-pool arena of a family "
+             f"that {'shares' if shares else 'shares no'} prefixes")
     if split["tokens"] != single["tokens"]:
         fail(f"disaggregated tokens {split['tokens']} != single-pool "
              f"{single['tokens']}")
-    if dstats["decode"]["kv_handoffs_in"] < 1 or \
+    taken = dstats["decode"]["kv_handoffs_in"]
+    if split["handoffs"] != len(prompts) or \
+            ((taken < 1) if shares else (taken != 0)) or \
             dstats["prefill"]["decode_active"] != 0:
-        fail(f"disaggregation: handoffs in "
-             f"{dstats['decode']['kv_handoffs_in']}, resident on the "
-             f"prefill pool {dstats['prefill']['decode_active']}")
-    print("  disaggregated: tokens equal the single-pool run; KV handoffs "
-          "in, nothing resident on the prefill pool")
-    if launches["decode_attention"] <= 0 or \
-            launches["flash_attention_lse"] <= 0:
+        fail(f"disaggregation: {split['handoffs']} handoffs sent, {taken} "
+             f"taken in, resident on the prefill pool "
+             f"{dstats['prefill']['decode_active']}")
+    print(f"  disaggregated: tokens equal the single-pool run; "
+          f"{split['handoffs']} KV handoffs sent, {taken} taken in"
+          f"{'' if shares else ' (hybrid recomputes each prompt)'}, "
+          "nothing resident on the prefill pool")
+    if not all(launches[n] > 0 for n in need):
         fail(f"a kernel of the decode path never launched: {launches}")
 
     # the same path in bfloat16, timed, then one profiled decode step
     del params
-    cfg16, _, params16 = smoke_setup("qwen3-1.7b", full_width=True,
+    free_device()
+    cfg16, _, params16 = smoke_setup(arch, full_width=True,
                                      dtype="bfloat16", seq_len=DECODE_CTX,
                                      device=device)
     r16, _, wall = run_decode(cfg16, book, params16, prompts, disagg=False,
@@ -767,6 +1105,21 @@ def profile_decode_step(cfg, book, params, prompts, device) -> float:
             f"bf16 profiled decode step (batch {DECODE_BATCH})", step)
 
 
+PHASES = ("kernels", "serve", "decode", "hybrid", "ssm")
+# kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
+# kernel it replaces)
+KERNELS = {
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:141"),
+    "flash_attention_lse": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention_bwd.py:86"),
+    "decode_attention": ("decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:93"),
+    "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:80"),
+    "wkv6_scan": ("wkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:85"),
+}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -799,38 +1152,65 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {stem}: {line.strip()}")
 
-    print("== kernels")
-    worst = kernel_phase(device)
-    timing = timing_phase(device)
+    # a partial run (``--phases kernels,hybrid``: a first check of a new
+    # kernel) checks what it runs and prints no record and no result
+    phases = PHASES if len(sys.argv) < 3 or sys.argv[1] != "--phases" \
+        else tuple(sys.argv[2].split(","))
+    if not set(phases) <= set(PHASES):
+        fail(f"unknown phases {phases}; known: {PHASES}")
+    runs = []                           # launch counts of each path
+    if "kernels" in phases:
+        print("== kernels")
+        worst = kernel_phase(device)
+        timing = timing_phase(device)
+    if "serve" in phases:
+        print("== serve")
+        runs.append(serve_phase(device, need=("flash_attention",
+                                              "flash_attention_lse"),
+                                after_fp32=rounding_sweep((28,))))
+    if "decode" in phases:
+        print("== decode")
+        runs.append(decode_phase(device))
+    if "hybrid" in phases:
+        print("== hybrid")
+        free_device()
+        runs.append(serve_phase(device, "hymba-1.5b", seed=2, hi=1536,
+                                n_long=1, exact=True,
+                                need=("flash_attention_lse", "ssm_scan"),
+                                after_fp32=rounding_sweep((4, 8, 16, 32))))
+        free_device()
+        runs.append(decode_phase(device, "hymba-1.5b",
+                                 need=("decode_attention",
+                                       "flash_attention_lse", "ssm_scan")))
+    if "ssm" in phases:
+        print("== ssm")
+        free_device()
+        sweep = rounding_sweep((2, 4, 8, 16, 32))
 
-    print("== serve")
-    launches = serve_phase(device)
+        def rwkv_checks(cfg, params):
+            sweep(cfg, params)
+            ssm_steps_check(cfg, params)
+        runs.append(serve_phase(device, "rwkv6-7b", seed=3, exact=True,
+                                need=("wkv6_scan",), after_fp32=rwkv_checks))
+    if phases != PHASES:
+        print(f"== partial run ({', '.join(phases)}) done in "
+              f"{time.perf_counter() - t_start:.1f} s: no record")
+        return 0
+    launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
+    print(f"  launches per path (serve, decode, hybrid serve, hybrid decode, "
+          f"ssm serve): {runs}")
 
-    print("== decode")
-    dlaunches = decode_phase(device)
-    launches = {name: launches.get(name, 0) + dlaunches.get(name, 0)
-                for name in dlaunches}
-
-    source = {"flash_attention": "flash_attention.cu",
-              "flash_attention_lse": "flash_attention.cu",
-              "decode_attention": "decode_attention.cu"}
-    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:141",
-                "flash_attention_lse":
-                    "src/repro/kernels/flash_attention_bwd.py:86",
-                "decode_attention":
-                    "src/repro/kernels/decode_attention.py:93"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{source[name]}",
-         "replaces": replaces[name],
+         "source": f"src/repro_torch/kernels/csrc/{KERNELS[name][0]}",
+         "replaces": KERNELS[name][1],
          "launches": launches[name],
          "max_abs_err": max(worst[name].values()),
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name in ("flash_attention", "flash_attention_lse",
-                     "decode_attention")]}
+        for name in KERNELS]}
     print(f"== done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(smi)

@@ -142,11 +142,13 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, seg_ids: Optional[Tensor],
     return o, lse
 
 
-def _on_cpu(q: Tensor) -> bool:
+def _on_cpu(q: Tensor, what: str = "attention") -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA
+    one (the kernel runs); raises for any other device."""
     if q.device.type == "cpu":
         return True
     if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+        raise ValueError(f"no {what} kernel for device {q.device}")
     return False
 
 

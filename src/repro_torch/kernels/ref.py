@@ -1,7 +1,8 @@
-"""Plain PyTorch attention: the oracle and the memory-bounded reference.
+"""Plain PyTorch oracles and memory-bounded references of every kernel.
 
-These are the plain versions of the Hopper attention kernels
-(``kernels/flash_attention.py``, ``kernels/decode_attention.py``): the
+These are the plain versions of the Hopper kernels (attention:
+``kernels/flash_attention.py``, ``kernels/decode_attention.py``; the
+recurrent scans: ``kernels/ssm_scan.py``, ``kernels/wkv6_scan.py``): the
 CPU path runs them, and the kernels are held against them on the card.
 
 Conventions
@@ -22,6 +23,12 @@ import torch
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
+
+# Per-step log-decay clamp shared by the recurrent kernels (WKV6 / SSM).
+# Bounds the within-chunk cumulative decay so the matmul-form chunked
+# re-association (which divides by cumulative products) stays inside fp32
+# range: |chunk * LOG_DECAY_MIN| = 32 * 2.5 = 80, exp(80) ~ 5.5e34 < fp32 max.
+LOG_DECAY_MIN = -2.5
 
 
 def _gqa_scores(q: Tensor, k: Tensor) -> Tensor:
@@ -146,3 +153,185 @@ def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *,
             seg_q=None if seg_ids is None else seg_ids[:, sl],
             seg_kv=seg_kv, causal=causal, window=window, scale=scale))
     return torch.cat(outs, dim=1)[:, :Sq]
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (Finch) WKV oracle
+# ---------------------------------------------------------------------------
+
+def pick_block(size: int, preferred: int) -> int:
+    """The JAX package's chunk rule (``repro/kernels/ops.py::_pick_block``):
+    the largest divisor of ``size`` not above ``preferred`` — 1 for a
+    prime length. The plain recurrent scans run with it, so the CPU path
+    chunks as the JAX reference path does."""
+    b = min(preferred, size)
+    while size % b:
+        b -= 1
+    return max(b, 1)
+
+
+def wkv6_log_decay(w: Tensor) -> Tensor:
+    """The shared clamp of the per-channel decay, as a log: w clipped to
+    [1e-12, 1], then log w to [LOG_DECAY_MIN, -1e-6]."""
+    return torch.clamp(torch.log(torch.clamp(w, 1e-12, 1.0)),
+                       LOG_DECAY_MIN, -1e-6)
+
+
+def _zero_state(B, H, a, b, device) -> Tensor:
+    return torch.zeros((B, H, a, b), dtype=torch.float32, device=device)
+
+
+def ref_wkv6(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+             state: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    """Token-by-token WKV6 recurrence (the oracle).
+
+    r,k,v,w: (B, T, H, hd); w in (0,1) is the data-dependent per-channel
+    decay; u: (H, hd) learned bonus; state: (B, H, hd, hd) carrying S
+    (k-dim x v-dim).
+
+    o_t = r_t @ (S_{t-1} + diag(u) k_t^T v_t)
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+
+    w is clamped to [exp(LOG_DECAY_MIN), 1) — the shared decay clamp.
+    Returns (o (B,T,H,hd), final state).
+    """
+    B, T, H, hd = r.shape
+    S = _zero_state(B, H, hd, hd, r.device) if state is None else state
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    outs = []
+    for t in range(T):
+        wt = torch.exp(wkv6_log_decay(wf[:, t]))
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]      # (B,H,hd,hd)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], S + uf * kv))
+        S = wt[..., None] * S + kv
+    o = torch.stack(outs, dim=1) if outs else vf[:, :0].clone()
+    return o.to(r.dtype), S
+
+
+def chunked_wkv6(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                 state: Optional[Tensor] = None,
+                 chunk: int = 32) -> tuple[Tensor, Tensor]:
+    """Matmul-form chunked WKV6 (the algorithm of the TPU kernel).
+
+    Within a chunk with cumulative decay P_t = prod_{s<=t} w_s:
+      o_t = (r_t * P_{t-1}) @ S_in
+            + sum_{s<t} ((r_t * P_{t-1} / P_s) . k_s) v_s
+            + (r_t * u * k_t) @ v_t
+      S_out = diag(P_T) S_in + (k_chunk * (P_T / P_s))^T v_chunk
+    """
+    B, T, H, hd = r.shape
+    S = _zero_state(B, H, hd, hd, r.device) if state is None else state
+    pad = (-T) % chunk
+    if pad:
+        z = lambda x, val=0.0: torch.nn.functional.pad(   # noqa: E731
+            x, (0, 0, 0, 0, 0, pad), value=val)
+        r, k, v = z(r), z(k), z(v)
+        w = z(w, 1.0)
+    n = r.shape[1] // chunk
+    resh = lambda x: (x.reshape(B, n, chunk, H, hd)       # noqa: E731
+                      .permute(1, 0, 3, 2, 4).float())
+    rs, ks, vs, ws = map(resh, (r, k, v, w))              # (n,B,H,C,hd)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                device=r.device), diagonal=-1)
+    uf = u.float()[None, :, None, :]
+    outs = []
+    for i in range(n):
+        rc, kc, vc, wc = rs[i], ks[i], vs[i], ws[i]        # (B,H,C,hd)
+        logw = wkv6_log_decay(wc)
+        wc = torch.exp(logw)                               # clamped decay
+        P = torch.exp(torch.cumsum(logw, dim=-2))          # P_t, (B,H,C,hd)
+        r_t = rc * (P / wc)                                # r_t * P_{t-1}
+        k_s = kc / P
+        inter = torch.einsum("bhck,bhkv->bhcv", r_t, S)
+        scores = torch.einsum("bhck,bhsk->bhcs", r_t, k_s) * tri
+        diag = torch.sum(rc * (uf * kc), dim=-1)           # (B,H,C)
+        intra = torch.einsum("bhcs,bhsv->bhcv", scores, vc) \
+            + diag[..., None] * vc
+        outs.append(inter + intra)
+        PT = P[..., -1:, :]                                # (B,H,1,hd)
+        k_carry = kc * (PT / P)
+        S = PT[..., 0, :, None] * S + torch.einsum("bhsk,bhsv->bhkv",
+                                                   k_carry, vc)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * chunk, H, hd)
+    return o[:, :T].to(r.dtype), S
+
+
+# ---------------------------------------------------------------------------
+# Mamba2-style selective scan oracle (hymba SSM heads)
+# ---------------------------------------------------------------------------
+
+def ref_ssm_scan(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+                 state: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    """Per-head scalar-decay selective state-space scan (the oracle).
+
+    x:  (B, T, H, hd)   inner activations split into heads
+    dt: (B, T, H)       softplus'd step sizes
+    A:  (H,)            negative decay rates (A < 0)
+    Bm: (B, T, N)       input->state projection (shared across heads)
+    Cm: (B, T, N)       state->output projection
+    state: (B, H, hd, N)
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t * (x_t outer B_t);  y_t = h_t @ C_t
+
+    The per-step log-decay dt*A is clamped to [LOG_DECAY_MIN, 0] — the
+    same clamp every implementation applies.
+    """
+    B, T, H, hd = x.shape
+    N = Bm.shape[-1]
+    h = _zero_state(B, H, hd, N, x.device) if state is None else state
+    xf, dtf, bf, cf = x.float(), dt.float(), Bm.float(), Cm.float()
+    outs = []
+    for t in range(T):
+        a = torch.exp(torch.clamp(dtf[:, t] * A[None], LOG_DECAY_MIN, 0.0))
+        upd = dtf[:, t, :, None] * xf[:, t]                # (B,H,hd)
+        h = a[..., None, None] * h + upd[..., None] * bf[:, t, None, None, :]
+        outs.append(torch.einsum("bhdn,bn->bhd", h, cf[:, t]))
+    y = torch.stack(outs, dim=1) if outs else xf[:, :0].clone()
+    return y.to(x.dtype), h
+
+
+def chunked_ssm_scan(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                     Cm: Tensor, state: Optional[Tensor] = None,
+                     chunk: int = 32) -> tuple[Tensor, Tensor]:
+    """Matmul-form chunked selective scan (the algorithm of the TPU
+    kernel).
+
+    With scalar per-head decay a_t = exp(dt_t A), cumulative L_t = prod a_s:
+      y_t = C_t @ (L_t h_0 + sum_{s<=t} (L_t/L_s) dt_s x_s B_s^T)
+    """
+    B, T, H, hd = x.shape
+    N = Bm.shape[-1]
+    h = _zero_state(B, H, hd, N, x.device) if state is None else state
+    pad = (-T) % chunk
+    if pad:
+        F = torch.nn.functional
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    n = x.shape[1] // chunk
+    xs = x.reshape(B, n, chunk, H, hd).permute(1, 0, 3, 2, 4).float()
+    dts = dt.reshape(B, n, chunk, H).permute(1, 0, 3, 2).float()
+    Bs = Bm.reshape(B, n, chunk, N).permute(1, 0, 2, 3).float()
+    Cs = Cm.reshape(B, n, chunk, N).permute(1, 0, 2, 3).float()
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32,
+                                device=x.device))
+    outs = []
+    for i in range(n):
+        xc, dtc, bc, cc = xs[i], dts[i], Bs[i], Cs[i]
+        la = torch.clamp(dtc * A[None, :, None], LOG_DECAY_MIN, 0.0)
+        L = torch.exp(torch.cumsum(la, dim=-1))            # (B,H,C)
+        # inter-chunk: C_t @ (L_t h_0)
+        y_inter = torch.einsum("bcn,bhdn->bhcd", cc, h) * L[..., None]
+        # intra-chunk: scores_ts = (L_t/L_s) dt_s (C_t . B_s), s<=t
+        cb = torch.einsum("bcn,bsn->bcs", cc, bc)          # (B,C,C)
+        ratio = L[..., :, None] / L[..., None, :]          # (B,H,C,C)
+        scr = cb[:, None] * ratio * dtc[..., None, :] * tri
+        outs.append(y_inter + torch.einsum("bhcs,bhsd->bhcd", scr, xc))
+        LT = L[..., -1:]                                   # (B,H,1)
+        wgt = (LT / L) * dtc                               # (B,H,C)
+        h = LT[..., None] * h + torch.einsum("bhc,bhcd,bcn->bhdn", wgt, xc,
+                                             bc)
+    y = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * chunk, H, hd)
+    return y[:, :T].to(x.dtype), h

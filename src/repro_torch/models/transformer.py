@@ -9,8 +9,11 @@ paper's technique) cuts the stack at block granularity:
 supplied hidden states — the substrate operation Graft's alignment and
 shared stages run.
 
-Only the ``dense`` family is ported so far: [ln -> GQA attn] +
-[ln -> (swiglu|gelu) mlp].
+Families ported so far:
+  dense   — [ln -> GQA attn] + [ln -> (swiglu|gelu) mlp]
+  hybrid  — parallel attn + mamba2-style SSM heads (hymba), then mlp
+  ssm     — RWKV6 time-mix + channel-mix (attention-free)
+The moe, vlm and audio families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import torch_dtype
 
 Tensor = torch.Tensor
@@ -36,17 +41,31 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (dense "
-            "only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(PORTED_FAMILIES)})")
 
 
 def _layer(blocks: dict, i: int) -> dict:
     """The i-th layer's params out of a stacked-blocks dict (views)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def _depth(blocks: dict) -> int:
+    """Length of the leading layer axis of a stacked-blocks dict."""
+    for v in blocks.values():
+        if isinstance(v, dict):
+            if v:
+                return _depth(v)
+        else:
+            return v.shape[0]
+    raise ValueError("stacked blocks hold no tensor")
 
 
 def slice_blocks(blocks: dict, start: int, end: int) -> dict:
@@ -74,10 +93,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = nn.dense_init(gen, cfg.d_model, cfg.vocab_size, dt)
-    p["blocks"] = {"ln1": nn.init_norm(cfg, dev, L),
-                   "ln2": nn.init_norm(cfg, dev, L),
-                   "attn": attn.init_attention(gen, cfg, L),
-                   "mlp": nn.init_mlp(gen, cfg, L)}
+    blocks = {"ln1": nn.init_norm(cfg, dev, L),
+              "ln2": nn.init_norm(cfg, dev, L)}
+    if cfg.family == "ssm":
+        blocks["time_mix"] = rwkv_mod.init_time_mix(gen, cfg, L)
+        blocks["channel_mix"] = rwkv_mod.init_channel_mix(gen, cfg, L)
+    else:
+        blocks["attn"] = attn.init_attention(gen, cfg, L)
+        blocks["mlp"] = nn.init_mlp(gen, cfg, L)
+    if cfg.family == "hybrid":
+        blocks["ssm"] = ssm_mod.init_ssm(gen, cfg, L)
+    p["blocks"] = blocks
     return p
 
 
@@ -89,16 +115,25 @@ def block_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
                   window: int = 0, causal: bool = True,
                   seg_ids: Optional[Tensor] = None,
                   positions: Optional[Tensor] = None) -> Tensor:
-    """One dense block, full sequence.
+    """One block, full sequence.
 
     seg_ids/positions (B, S) carry the sequence-packed layout
     (``models.packed``): attention is masked to segment boundaries and
     RoPE restarts per segment. None = the ordinary unpacked batch.
     """
+    if cfg.family == "ssm":
+        y, _, _ = rwkv_mod.time_mix_forward(
+            p["time_mix"], cfg, nn.apply_norm(p["ln1"], cfg, x))
+        x = x + y
+        y, _ = rwkv_mod.channel_mix(
+            p["channel_mix"], cfg, nn.apply_norm(p["ln2"], cfg, x))
+        return x + y
     h = nn.apply_norm(p["ln1"], cfg, x)
-    x = x + attn.attn_forward(p["attn"], cfg, h, window=window,
-                              causal=causal, positions=positions,
-                              seg_ids=seg_ids)
+    y = attn.attn_forward(p["attn"], cfg, h, window=window, causal=causal,
+                          positions=positions, seg_ids=seg_ids)
+    if cfg.family == "hybrid":
+        y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], cfg, h))
+    x = x + y
     h = nn.apply_norm(p["ln2"], cfg, x)
     return x + nn.apply_mlp(p["mlp"], cfg, h)
 
@@ -108,8 +143,7 @@ def stack_forward(blocks: dict, cfg: ModelConfig, x: Tensor, *,
                   seg_ids: Optional[Tensor] = None,
                   positions: Optional[Tensor] = None) -> Tensor:
     """Apply every layer of ``blocks`` (leading layer axis) in order."""
-    n = next(iter(blocks["attn"].values())).shape[0]
-    for i in range(n):
+    for i in range(_depth(blocks)):
         x = block_forward(_layer(blocks, i), cfg, x, window=window,
                           causal=causal, seg_ids=seg_ids,
                           positions=positions)
@@ -164,7 +198,7 @@ def run_fragment(params: dict, cfg: ModelConfig, inputs: Tensor,
     boundary work — what a serving instance actually runs.
 
     ``extras`` carries the vlm/audio families' per-request inputs; the
-    dense family takes none and ignores it, as the JAX package does."""
+    ported families take none and ignore it, as the JAX package does."""
     L = n_fragment_units(cfg)
     x = inputs
     if start == 0:

@@ -306,8 +306,9 @@ class FragmentInstance:
         cleanly between a solo admission cache and the batched one, with
         a context that fits the dense cache without ring wraparound so
         cache slot == absolute position and arena extraction is exact.
-        (Of those families only dense is ported: moe and hybrid raise
-        ``NotImplementedError`` at their first admission.)"""
+        (dense/moe/hybrid — vlm/audio need extras, ssm has no KV. Of
+        those, moe is not ported yet and raises ``NotImplementedError``
+        at its first admission.)"""
         return (self.decode_ctx > 0 and self.start == 0
                 and self.end == self._units
                 and self.cfg.family in ("dense", "moe", "hybrid")
@@ -335,7 +336,7 @@ class FragmentInstance:
 
     def _copy_row(self, dst: dict, src: dict, i: int) -> dict:
         """Write the B=1 cache ``src`` into row ``i`` of batched ``dst``,
-        in place."""
+        in place: every entry, hybrid's ``ssm_conv``/``ssm_scan`` too."""
         for k, v in dst.items():
             if self._row_axis(k) == 0:
                 v[i].copy_(src[k][0])
@@ -348,9 +349,13 @@ class FragmentInstance:
         prefix KV from the paged arena (keeping at least the LAST prompt
         token to recompute, so a fully-shared prompt still yields first-
         token logits), step the remainder, and return the first generated
-        token, the cache row, and the arena-bound suffix KV."""
+        token, the cache row, and the arena-bound suffix KV. A pool that
+        shares no prefix (``_kv_share`` False: hybrid, whose scan state
+        the arena does not hold, and an int8 cache) never gathers: its
+        prompt always runs whole through ``prefill``."""
         cfg, S, dev = self.cfg, int(toks.shape[0]), self.device
-        pop = min(n_shared, S - 1)            # prefix positions gathered
+        # prefix positions gathered
+        pop = min(n_shared, S - 1) if self._kv_share else 0
         if pop == 0:
             logits, c1 = prefill(self._params, cfg,
                                  torch.from_numpy(toks).to(dev)[None],

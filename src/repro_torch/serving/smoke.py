@@ -117,18 +117,52 @@ def mixed_depth_plan(cfg, book, frags, *, s: int = 1, batch: int = 4):
                          schedule_time_s=0.0)
 
 
-def check_against_monolithic(cfg, params, reqs, *, atol=5e-5, rtol=1e-3):
+def check_against_monolithic(cfg, params, reqs, *, atol=5e-5,
+                             rtol=1e-3) -> float:
     """Assert each served result equals the un-fragmented forward pass
-    (``|got - want| <= atol + rtol * |want|`` elementwise)."""
+    (``|got - want| <= atol + rtol * |want|`` elementwise). Returns the
+    largest absolute difference seen."""
     from repro_torch.models import forward
     dev = params["embed"].device
+    worst = 0.0
     for req, _p in reqs:
         toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
                                device=dev)[None]
-        want = forward(params, cfg, toks)[0]
-        np.testing.assert_allclose(req.result.float().numpy(),
-                                   want.float().cpu().numpy(),
+        want = forward(params, cfg, toks)[0].float().cpu().numpy()
+        got = req.result.float().numpy()
+        np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
+        worst = max(worst, float(np.abs(got - want).max()))
+    return worst
+
+
+def check_steps_against_forward(cfg, params, tokens, n_steps: int, *,
+                                atol=1e-4, rtol=1e-3) -> float:
+    """Prefill all but the last ``n_steps`` tokens, then teacher-force
+    them through ``decode_step`` one at a time: the prefill logits and
+    each step's logits must equal the full forward at those positions
+    (``tests/test_models.py``'s multi-step decode bound). This holds the
+    final recurrent state a prefill hands to decode. Returns the largest
+    absolute difference seen."""
+    from repro_torch.models import forward
+    from repro_torch.models.decode import decode_step, prefill
+    dev = params["embed"].device
+    toks = torch.as_tensor(np.asarray(tokens, np.int32).reshape(1, -1),
+                           device=dev)
+    S = int(toks.shape[1]) - n_steps
+    full = forward(params, cfg, toks).float()
+    logits, cache = prefill(params, cfg, toks[:, :S],
+                            cache_seq=int(toks.shape[1]))
+    pairs = [(logits.float(), full[:, :S])]
+    for i in range(n_steps):
+        logits, cache = decode_step(params, cfg, cache,
+                                    toks[:, S + i:S + i + 1])
+        pairs.append((logits[:, 0].float(), full[:, S + i]))
+    worst = 0.0
+    for got, want in pairs:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=atol, rtol=rtol)
+        worst = max(worst, float((got - want).abs().max()))
+    return worst
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each Hopper kernel against its plain
-PyTorch version on the card, and the serving paths (one-shot and decode)
-launching the kernels.
+PyTorch version on the card (attention, decode attention and the two
+recurrent scans), and the serving paths (one-shot and decode, dense and
+hybrid) launching the kernels.
 
 Marked ``gpu``; every test asks the ``cuda`` fixture for the card and
 skips where there is none, so every pytest worker collects the same
@@ -17,6 +18,8 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssm_scan as ss
+from repro_torch.kernels import wkv6_scan as wk
 
 pytestmark = pytest.mark.gpu
 
@@ -203,4 +206,147 @@ def test_decode_serving_on_the_card_runs_the_kernels(cuda):
     assert fa.LAUNCHES["flash_attention_lse"] > 0        # admission prefill
     assert r["aborted"] == [0] and r["mid_admits"] >= 1
     for (_, toks), got in list(zip(prompts, r["tokens"]))[1:]:
+        assert got == reference_decode(cfg, params, toks, 6)
+
+
+# ------------------------------------------------------- recurrent scans
+
+def _ssm_case(device, dtype, B, T, H, hd, N, dt_scale=0.2, seed=0):
+    """x, Bm, Cm in ``dtype``; dt, A and the (nonzero) state float32."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g)              # noqa: E731
+    x = (rn(B, T, H, hd) * 0.5).to(device=device, dtype=dtype)
+    dt = (torch.nn.functional.softplus(rn(B, T, H)) * dt_scale).to(device)
+    A = (-rn(H).abs() * 4).to(device)
+    Bm = (rn(B, T, N) * 0.5).to(device=device, dtype=dtype)
+    Cm = (rn(B, T, N) * 0.5).to(device=device, dtype=dtype)
+    h0 = (rn(B, H, hd, N) * 0.1).to(device)
+    return x, dt, A, Bm, Cm, h0
+
+
+def _wkv_case(device, dtype, B, T, H, hd, w=None, seed=0):
+    """r, k, v in ``dtype``; w, u and the (nonzero) state float32."""
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g)              # noqa: E731
+    r, k, v = ((rn(B, T, H, hd) * 0.5).to(device=device, dtype=dtype)
+               for _ in range(3))
+    w = torch.sigmoid(rn(B, T, H, hd)) * 0.85 + 0.1 if w is None else \
+        torch.full((B, T, H, hd), float(w))
+    u = rn(H, hd) * 0.1
+    s0 = rn(B, H, hd, hd) * 0.1
+    return r, k, v, w.to(device), u.to(device), s0.to(device)
+
+
+SSM_CASES = [  # B, T, H, hd, N, dt scale
+    (1, 512, 50, 64, 16, 0.2),          # hymba main path
+    (1, 32, 1, 16, 8, 0.2), (2, 128, 3, 32, 16, 0.2), (2, 96, 2, 64, 16, 0.2),
+    (1, 1, 50, 64, 16, 0.2),            # T = 1
+    (2, 37, 4, 64, 16, 0.2),            # prime T
+    (1, 100, 8, 64, 16, 0.2),           # T not a multiple of 32
+    (1, 64, 2, 16, 8, 50.0),            # dt * A far below -2.5
+]
+WKV_CASES = [  # B, T, H, hd, w (None: random decays)
+    (1, 512, 64, 64, None),             # rwkv6 main path
+    (1, 32, 1, 16, None), (2, 128, 3, 32, None), (2, 96, 2, 64, None),
+    (1, 1, 64, 64, None), (2, 37, 4, 64, None), (1, 100, 8, 64, None),
+    (1, 64, 2, 16, 1e-6),               # decay far below the clamp
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSM_CASES)
+def test_ssm_kernel_matches_plain_version(cuda, dtype, case):
+    *shape, dt_scale = case
+    args = _ssm_case(cuda, dtype, *shape, dt_scale=dt_scale)
+    atol, rtol = TOL[dtype]
+    y, h = ss.ssm_scan(*args)
+    y2, h2 = ss.ssm_scan_plain(*args)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    torch.testing.assert_close(y.float(), y2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(h, h2, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV_CASES)
+def test_wkv6_kernel_matches_plain_version(cuda, dtype, case):
+    *shape, w = case
+    args = _wkv_case(cuda, dtype, *shape, w=w)
+    atol, rtol = TOL[dtype]
+    o, s = wk.wkv6_scan(*args)
+    o2, s2 = wk.wkv6_scan_plain(*args)
+    assert o.dtype == dtype and s.dtype == torch.float32
+    assert torch.isfinite(o.float()).all() and torch.isfinite(s).all()
+    torch.testing.assert_close(o.float(), o2.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(s, s2, atol=atol, rtol=rtol)
+
+
+def test_scan_kernels_read_strided_views_and_count_launches(cuda):
+    """Head-interleaved views (the models' reshaped projections) need no
+    copy; each launch counts once, the plain versions never."""
+    before = (ss.LAUNCHES["ssm_scan"], wk.LAUNCHES["wkv6_scan"])
+    x, dt, A, Bm, Cm, h0 = _ssm_case(cuda, torch.bfloat16, 2, 40, 6, 32, 16)
+    xw = torch.zeros(2, 40, 6, 64, dtype=torch.bfloat16, device=cuda)
+    xw[..., :32] = x
+    y, h = ss.ssm_scan(xw[..., :32], dt, A, Bm, Cm, h0)
+    y2, h2 = ss.ssm_scan(x, dt, A, Bm, Cm, h0)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    r, k, v, w, u, s0 = _wkv_case(cuda, torch.float32, 2, 40, 4, 32)
+    o, s = wk.wkv6_scan(r, k, v, w, u, s0)
+    wk.wkv6_scan_plain(r, k, v, w, u, s0)
+    ss.ssm_scan_plain(x, dt, A, Bm, Cm, h0)
+    assert (ss.LAUNCHES["ssm_scan"], wk.LAUNCHES["wkv6_scan"]) == \
+        (before[0] + 2, before[1] + 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        wk.wkv6_scan(r, k, v, w.cpu(), u, s0)
+    with pytest.raises(TypeError):
+        ss.ssm_scan(x, dt.to(torch.bfloat16), A, Bm, Cm, h0)
+
+
+def test_hybrid_serving_on_the_card_runs_the_scan_kernel(cuda):
+    """A tiny hymba (3 layers at smoke width, head_dim 16 raised to 32 for
+    the attention kernels) through the padded one-shot path and decode:
+    the scan kernel launches in both, and the results equal the port's
+    monolithic forward and unbatched reference."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import Fragment, ProfileBook, arch_layer_costs
+    from repro_torch.models import init_params
+    from repro_torch.serving import GraftExecutor, ServeRequest
+    from repro_torch.serving.smoke import (check_against_monolithic,
+                                           decode_plan, drive_decode,
+                                           mixed_depth_plan, reference_decode)
+
+    cfg = dataclasses.replace(reduced(get_config("hymba-1.5b"), n_layers=3),
+                              head_dim=32)
+    book = ProfileBook()
+    book.add(dataclasses.replace(arch_layer_costs(cfg, seq_len=16),
+                                 name=cfg.name))
+    params = init_params(cfg, seed=0)
+    frags = [Fragment(cfg.name, p, 50.0, 30.0, client=f"c{i}")
+             for i, p in enumerate((0, 1, 1))]
+    rng = np.random.RandomState(0)
+    reqs = [(ServeRequest(client=f.client,
+                          tokens=rng.randint(0, cfg.vocab_size, n)
+                          .astype(np.int32)), f.p)
+            for f, n in zip(frags, (17, 90, 9))]
+    ss.reset_launches()
+    with GraftExecutor(mixed_depth_plan(cfg, book, frags, s=1), params,
+                       cfg) as ex:
+        ex.serve(reqs)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssm_scan"] > 0
+    check_against_monolithic(cfg, params, reqs)
+    prompts = [(f"c{i % 2}", rng.randint(0, cfg.vocab_size, n)
+                .astype(np.int32)) for i, n in enumerate((17, 40, 9))]
+    ss.reset_launches()
+    da.reset_launches()
+    with GraftExecutor(decode_plan(cfg, book, frags[:2], batch=2), params,
+                       cfg, decode_ctx=64, kv_block_tokens=8) as ex:
+        r = drive_decode(ex, prompts, 6)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssm_scan"] >= len(prompts) * cfg.n_layers
+    assert da.LAUNCHES["decode_attention"] > 0
+    for (_, toks), got in zip(prompts, r["tokens"]):
         assert got == reference_decode(cfg, params, toks, 6)
