@@ -14,10 +14,14 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    segments starting mid-tile; for the decode kernel ragged Sk, a
    ring-buffer kv_pos with -1 holes, windows; for the two recurrent scans
    T = 1, a prime T, a T that is not a multiple of 32, a nonzero input
-   state and decays far past the clamp, outputs and final states), in
-   float32 and bfloat16; then times the kernel, the plain version and a
-   PyTorch library call (where one exists) at the main-path shapes with
-   CUDA events.
+   state and decays far past the clamp, outputs and final states; for
+   the two backward kernels dq, dk and dv on the same (q, k, v, o, lse,
+   dO): the training shape, the JAX backward test's shapes with windows
+   0 and 40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal and rows
+   that see no kv), in float32 and bfloat16; then times the kernel, the
+   plain version and a PyTorch library call (where one exists) at the
+   main-path shapes with CUDA events (the library's attention backward
+   under the profiler).
 3. serve   — full-width qwen3-1.7b (all 28 layers, random weights from a
    seeded generator on the card) through ``GraftPlanner.plan`` and
    ``GraftExecutor.serve`` over an ``InProcessTransport``, then
@@ -52,11 +56,21 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    ``decode_step``s held against the forward at those positions (the
    WKV state the scan kernel hands to decode); then bfloat16 waves, the
    last one profiled. ``wkv6_scan`` must launch.
-
+7. train   — full-width qwen3-1.7b (28 layers, random weights) on the
+   ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
+   off: the loss and every gradient leaf through the kernels against
+   autograd of the plain attention (``ops.attention`` swapped here
+   only), then ``remat`` True and "dots" against False; 10 AdamW steps
+   (remat=True) whose loss must fall, launching the forward kernel 2 x
+   28 and dq and dkv 28 times a step, exactly; a checkpoint of the
+   trained params restored bit for bit and a resumed step equal to the
+   step without the round trip; then bfloat16 steps (fp32 moments),
+   timed, and one profiled.
 Each model is freed before the next one loads. The launch counts in the
-kernels' record are the sums over the serving paths: the serve waves
-and the float32 decode runs (single-pool and disaggregated) of each
-model, each path's counters zeroed just before it and read just after.
+kernels' record are the sums over the main paths: the serve waves and
+the float32 decode runs (single-pool and disaggregated) of each model,
+and the float32 AdamW steps, each path's counters zeroed just before it
+and read just after.
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -162,8 +176,8 @@ def kernel_phase(device) -> dict:
 
     print("  tolerances: float32 atol 2e-5 rtol 1e-3 (fp32 accumulation in "
           "both, summation order only); bfloat16 atol 2e-2 rtol 1e-2 (both "
-          "round o to bf16, one ulp near 1 is 7.8e-3); lse atol 1e-4 (fp32 "
-          "in both)")
+          "round o, or dq, dk and dv, to bf16 from fp32 sums: one ulp is "
+          "2^-7 relative, 7.8e-3 near 1); lse atol 1e-4 (fp32 in both)")
     worst = {"flash_attention": {}, "flash_attention_lse": {}}
     gen = torch.Generator().manual_seed(0)
     for dname, dtype in (("float32", torch.float32),
@@ -193,6 +207,7 @@ def kernel_phase(device) -> dict:
                 worst["flash_attention_lse"][(dname, label)] = e
     worst["decode_attention"] = decode_kernel_cases(device, gen)
     worst.update(scan_kernel_cases(device, gen))
+    worst.update(bwd_kernel_cases(device, gen))
     return worst
 
 
@@ -252,6 +267,66 @@ def decode_kernel_cases(device, gen) -> dict:
                             f"{(B, Sk, H, KV, hd)} window {window}", got,
                             want, atol, rtol)
             worst[(dname, label)] = e
+    return worst
+
+
+# (label, B, Sq, Sk, H, KV, hd, causal, window): the training main path,
+# tests/test_kernels.py::test_flash_attention_backward's shapes with
+# windows 0 and 40 (hd 16 raised to 32, the kernels' least head dim), GQA
+# groups 4 and 1, a prime S, Sq != Sk non-causal, and rows that see no kv
+# (non-causal, window 2, Sq > Sk: their lse is NEG_INF)
+BWD_MAIN = ("main path", 2, 512, 512, 16, 8, 128, True, 0)
+BWD_CASES = [BWD_MAIN] + [
+    (f"kernel-test shape, window {w}", B, S, S, H, KV, hd, True, w)
+    for B, S, H, KV, hd in ((1, 64, 2, 1, 32), (2, 96, 4, 2, 32),
+                            (1, 128, 8, 8, 32))
+    for w in (0, 40)] + [
+    ("prime S, GQA 4", 2, 131, 131, 4, 1, 128, True, 0),
+    ("window, GQA 1, hd 64", 1, 257, 257, 4, 4, 64, True, 64),
+    ("non-causal Sq!=Sk, hd 32", 2, 97, 131, 8, 2, 32, False, 0),
+    ("rows with no valid kv", 1, 100, 40, 4, 2, 64, False, 2),
+]
+
+
+def bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd, causal, window):
+    """q, k, v, o, lse, dO for one backward case: o and lse from the
+    plain forward, so the kernels and the plain backward see the same
+    six tensors."""
+    from repro_torch.kernels import flash_attention as fa
+    q = rand(gen, (B, Sq, H, hd), dtype, device)
+    k = rand(gen, (B, Sk, KV, hd), dtype, device)
+    v = rand(gen, (B, Sk, KV, hd), dtype, device)
+    do = rand(gen, (B, Sq, H, hd), dtype, device)
+    o, lse = fa.flash_attention_lse_plain(q, k, v, causal=causal,
+                                          window=window)
+    return q, k, v, o, lse, do
+
+
+def bwd_kernel_cases(device, gen) -> dict:
+    """Kernels 4 and 5 (dq; dk and dv) against the plain FA-2 backward
+    on the same (q, k, v, o, lse, dO)."""
+    import torch
+    from repro_torch.kernels import flash_attention_bwd as fab
+    worst = {"flash_attention_bwd_dq": {}, "flash_attention_bwd_dkv": {}}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        atol, rtol = TOL[dname]
+        for label, B, Sq, Sk, H, KV, hd, causal, window in BWD_CASES:
+            args = bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd,
+                              causal, window)
+            kw = dict(causal=causal, window=window)
+            got = fab.flash_attention_bwd(*args, **kw)
+            want = fab.flash_attention_bwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            tag = f"{dname} {label} {(B, Sq, Sk, H, KV, hd)} {kw}"
+            e = [check_close(f"flash_attention_bwd {n} {tag}", g, w, atol,
+                             rtol) for n, g, w in zip(("dq", "dk", "dv"),
+                                                      got, want)]
+            if not all(g.dtype == dtype for g in got):
+                fail(f"flash_attention_bwd {tag}: gradient dtypes "
+                     f"{[g.dtype for g in got]}")
+            worst["flash_attention_bwd_dq"][(dname, label)] = e[0]
+            worst["flash_attention_bwd_dkv"][(dname, label)] = max(e[1:])
     return worst
 
 
@@ -384,11 +459,13 @@ def time_ms(fn, iters: int = 20) -> tuple:
     return a.elapsed_time(b) / iters, host / iters
 
 
-def profiled_device_ms(fn) -> float:
+def profiled_device_ms(fn, names=None) -> float:
     """Device ms of one call of ``fn`` (after 3 warm-up calls): the sum of
     its kernels' device times under ``torch.profiler``. For a plain
     version of many small ops, whose queued launches would fill the
-    launch queue behind ``time_ms``'s device sleep and stall the host."""
+    launch queue behind ``time_ms``'s device sleep and stall the host,
+    and for a library call whose kernels are only part of a larger call.
+    ``names``, a list, receives the kernels' names."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -397,9 +474,11 @@ def profiled_device_ms(fn) -> float:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = sum(float(getattr(ev, "self_device_time_total", 0.0))
-             for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(float(getattr(ev, "self_device_time_total", 0.0)) for ev in evs)
+    if names is not None:
+        names.extend(ev.key for ev in evs)
     if us <= 0:
         fail("profiled_device_ms: the profiler saw no device time")
     return us / 1e3
@@ -482,6 +561,7 @@ def timing_phase(device) -> dict:
               "device times")
     out["decode_attention"] = time_decode(device, gen)
     out.update(time_scans(device, gen))
+    out.update(time_bwd(device, gen))
     return out
 
 
@@ -583,6 +663,68 @@ def time_scans(device, gen) -> dict:
     return out
 
 
+def time_bwd(device, gen) -> dict:
+    """Rows 4 and 5 at the training main path (B=2, S=512, H=16, KV=8,
+    hd=128, causal, bf16), L2 warm as in a backward pass that just made
+    dO. Each kernel is timed alone (dkv given the D that one dq launch
+    wrote). Bound: the bytes of each kernel's function (dq: q, k, v, o,
+    dO, lse in, dq and D out; dkv: q, k, v, dO, lse, D in, dk and dv out)
+    against 6 (dq) or 8 (dkv) FLOPs per valid (head, q, k) pair and head
+    dimension. Plain: the plain backward, which computes dq, dk and dv
+    together, so one time stands in both rows. Library: the backward of
+    one ``F.scaled_dot_product_attention(is_causal=True)`` call, the
+    device time of its kernels under the profiler, also in both rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.ref import _mask, _positions
+
+    _, B, S, _, H, KV, hd, causal, window = BWD_MAIN
+    dt = torch.bfloat16
+    q = rand(gen, (B, S, H, hd), dt, device)
+    k = rand(gen, (B, S, KV, hd), dt, device)
+    v = rand(gen, (B, S, KV, hd), dt, device)
+    do = rand(gen, (B, S, H, hd), dt, device)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    _, dvec = fab.launch_dq(q, k, v, o, lse, do)
+    pos = _positions(S, B, device)
+    pairs = int(_mask(pos, pos, causal=causal, window=window).sum()) * H
+    big, kvb, rows = B * S * H * hd * 2, B * S * KV * hd * 2, B * H * S * 4
+    plain_ms = time_ms(lambda: fab.flash_attention_bwd_plain(
+        q, k, v, o, lse, do))[0]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True)
+    lib_names = []
+    library_ms = profiled_device_ms(
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), do.transpose(1, 2),
+                                    retain_graph=True), names=lib_names)
+    out = {
+        "flash_attention_bwd_dq": dict(
+            run=lambda: fab.launch_dq(q, k, v, o, lse, do),
+            bytes=4 * big + 2 * kvb + 2 * rows, flops=6.0 * pairs * hd),
+        "flash_attention_bwd_dkv": dict(
+            run=lambda: fab.launch_dkv(q, k, v, lse, do, dvec),
+            bytes=2 * big + 4 * kvb + 2 * rows, flops=8.0 * pairs * hd),
+    }
+    for name, r in out.items():
+        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
+                                             H100_BF16_FLOPS)
+        r["ms"], r["host_ms"] = time_ms(r.pop("run"))
+        r.update(plain_ms=plain_ms, library_ms=library_ms,
+                 valid_pairs=pairs, shape=(B, S, H, KV, hd))
+        print(f"  {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms (host "
+              f"{r['host_ms']:.4f} ms per call), plain {plain_ms:.4f} ms "
+              f"(dq, dk and dv together), library (SDPA backward, "
+              f"profiled) {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes']} B, {r['flops']:.3e} FLOP over "
+              f"{pairs} valid (head, q, k) pairs); device times")
+    print(f"  SDPA backward kernels: {sorted(set(lib_names))}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving the main path
 # ---------------------------------------------------------------------------
@@ -639,7 +781,8 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
 # substrings of the port's attention and scan kernels (csrc/*.cu)
-ATTENTION_NAMES = ("attn_fwd_kernel", "decode_attn_kernel",
+ATTENTION_NAMES = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
+                   "attn_bwd_dkv_kernel", "decode_attn_kernel",
                    "decode_combine_kernel")
 SCAN_NAMES = ("ssm_scan_kernel", "wkv6_scan_kernel")
 
@@ -648,9 +791,10 @@ def launch_counters() -> list:
     """Every kernel wrapper module's ``LAUNCHES`` dict."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
-    return [fa, da, ss, wk]
+    return [fa, fab, da, ss, wk]
 
 
 def reset_launches() -> None:
@@ -1105,7 +1249,240 @@ def profile_decode_step(cfg, book, params, prompts, device) -> float:
             f"bf16 profiled decode step (batch {DECODE_BATCH})", step)
 
 
-PHASES = ("kernels", "serve", "decode", "hybrid", "ssm")
+# ---------------------------------------------------------------------------
+# phase 7: training on the main path
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 512
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-3
+# gradients through the kernels against autograd of the plain attention,
+# float32: per leaf ||g - g_oracle|| / ||g_oracle||
+GRAD_REL_L2 = 1e-3
+LOSS_RTOL = 1e-4
+BF16_STEPS = 5
+
+
+def rel_l2(a, b) -> float:
+    import torch
+    d = torch.linalg.vector_norm((a.float() - b.float()).flatten())
+    return float(d / torch.linalg.vector_norm(b.float().flatten())
+                 .clamp_min(1e-30))
+
+
+def named_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(named_leaves(v, f"{prefix}{k}/") if isinstance(v, dict)
+                   else {f"{prefix}{k}": v})
+    return out
+
+
+def worst_leaf(grads, want) -> tuple:
+    """(largest per-leaf relative L2 distance, its leaf)."""
+    a, b = named_leaves(grads), named_leaves(want)
+    return max((rel_l2(a[n], b[n]), n) for n in b)
+
+
+def plain_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    seg_ids=None):
+    """ops.attention's oracle for the train phase: the plain forward,
+    differentiated by autograd."""
+    from repro_torch.kernels import flash_attention as fa
+    if seg_ids is not None:
+        fail("the train phase runs no segmented attention")
+    return fa.flash_attention_lse_plain(q, k, v, causal=causal,
+                                        window=window, scale=scale)[0]
+
+
+def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
+    """Train full-width qwen3-1.7b (28 layers, random weights from a
+    seeded generator on the card) on the ``token_batches`` stream:
+    float32 gradients through the kernels against the plain-attention
+    oracle, the remat variants, AdamW steps (the counted path: every
+    layer's attention launches the forward kernel twice, remat's
+    recompute included, and dq and dkv once per step), a checkpoint round
+    trip and a resumed step, then bfloat16 steps, timed and one profiled.
+    Returns the launch counts of the AdamW steps. ``cfg``, ``batch`` and
+    ``seq`` cut it to size for a rehearsal on the CPU."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step, restore_checkpoint,
+                                      save_checkpoint)
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.train_step import loss_and_grads
+
+    cfg = cfg or dataclasses.replace(get_config("qwen3-1.7b"),
+                                     dtype="float32")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for t in named_leaves(params).values())
+    data = token_batches(batch=batch, seq_len=seq, vocab=cfg.vocab_size,
+                         seed=1)
+    b0 = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {n_params / 1e9:.3f}B params, {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}; batch {batch} x {seq} tokens; allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 1-2. gradients through the kernels, the oracle, the remat variants
+    def grads(remat):
+        t = time.perf_counter()
+        loss, _, g = loss_and_grads(params, cfg, b0["tokens"], b0["labels"],
+                                    remat=remat)
+        torch.cuda.synchronize()
+        return float(loss), g, time.perf_counter() - t
+    loss_k, g_k, s_k = grads(False)
+    saved = ops.attention
+    ops.attention = plain_attention
+    try:
+        loss_o, g_o, s_o = grads(False)
+    finally:
+        ops.attention = saved
+    rel, leaf = worst_leaf(g_k, g_o)
+    print(f"  fp32 loss through the kernels {loss_k:.6f}, through the plain "
+          f"attention {loss_o:.6f} (rel {abs(loss_k - loss_o) / loss_o:.2e}"
+          f", bound {LOSS_RTOL:g}); gradients: worst leaf {leaf} rel L2 "
+          f"{rel:.3e} (bound {GRAD_REL_L2:g}); {s_k:.2f} s / {s_o:.2f} s")
+    if abs(loss_k - loss_o) > LOSS_RTOL * abs(loss_o) or rel > GRAD_REL_L2:
+        fail("training gradients through the kernels disagree with the "
+             "plain attention's")
+    del g_o
+    for remat in (True, "dots"):
+        loss_r, g_r, s_r = grads(remat)
+        rel, leaf = worst_leaf(g_r, g_k)
+        print(f"  remat={remat!r}: loss {loss_r:.6f}, worst leaf {leaf} rel "
+              f"L2 {rel:.3e} against remat=False; {s_r:.2f} s")
+        if abs(loss_r - loss_k) > LOSS_RTOL * abs(loss_k) or \
+                rel > GRAD_REL_L2:
+            fail(f"remat={remat!r} changes the gradients")
+        del g_r
+    del g_k
+    free_device()
+
+    # 3-4. AdamW steps, the counted path
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+    opt = init_opt_state(params)
+    losses, walls = [], []
+    reset_launches()                        # the train path starts here
+    steps = TRAIN_STEPS
+    for _ in range(steps):
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, next(data))
+        losses.append(float(m["loss"]))     # synchronizes
+        walls.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    launches = read_launches()              # ... and ends here
+    print(f"  fp32 AdamW (lr {TRAIN_LR:g}, remat=True) {steps} steps: "
+          f"losses {[round(x, 4) for x in losses]}; s/step "
+          f"{[round(w, 3) for w in walls]}; last grad norm "
+          f"{float(m['grad_norm']):.3f}")
+    print(f"  kernel launches on the train path: {launches}")
+    if not np.isfinite(losses).all() or \
+            np.mean(losses[-3:]) >= np.mean(losses[:3]):
+        fail(f"the loss did not fall: {losses}")
+    want = {"flash_attention_lse": 2 * cfg.n_layers * steps,
+            "flash_attention_bwd_dq": cfg.n_layers * steps,
+            "flash_attention_bwd_dkv": cfg.n_layers * steps}
+    if any(launches[n] != c for n, c in want.items()):
+        fail(f"train path launches {launches}, expected {want}")
+
+    # 5. checkpoint round trip, and a resumed step
+    ckpt_dir = os.path.join(HERE, "build", "train_ckpt")
+    os.makedirs(os.path.dirname(ckpt_dir), exist_ok=True)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in named_leaves(params).values())
+    free = shutil.disk_usage(os.path.dirname(ckpt_dir)).free
+    print(f"  checkpoint: {nbytes / 1e9:.2f} GB of params, "
+          f"{free / 1e9:.1f} GB free on disk")
+    if free < 2 * nbytes:
+        fail("not enough disk for the checkpoint")
+    batch_r = next(data)
+    t = time.perf_counter()
+    save_checkpoint(ckpt_dir, params, step=steps)
+    t_save = time.perf_counter() - t
+    # both steps with deterministic kernels (the embedding's index
+    # backward sorts instead of accumulating in arrival order), so that
+    # they can be held to bit equality
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        p1, _, m1 = step(params, opt, batch_r)
+        t = time.perf_counter()
+        restored, at = restore_checkpoint(
+            ckpt_dir, tree_map(torch.zeros_like, params))
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+        same = all(torch.equal(a, b) for a, b in zip(
+            named_leaves(params).values(), named_leaves(restored).values()))
+        print(f"  save {t_save:.1f} s, restore {t_load:.1f} s (step {at});"
+              f" restored params equal the trained ones bit for bit: "
+              f"{same}")
+        if not same or at != steps:
+            fail("the checkpoint round trip changed the params")
+        del params
+        p2, _, m2 = step(restored, opt, batch_r)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diffs = {n: float((a.float() - b.float()).abs().max())
+             for (n, a), b in zip(named_leaves(p1).items(),
+                                  named_leaves(p2).values())}
+    print(f"  resumed step: loss {float(m2['loss']):.6f} vs "
+          f"{float(m1['loss']):.6f} without the round trip; largest "
+          f"|param diff| {max(diffs.values()):.3e}")
+    if float(m1["loss"]) != float(m2["loss"]) or any(diffs.values()):
+        fail(f"the resumed step differs from the step without the round "
+             f"trip: {diffs}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del restored, opt, p1, p2
+    free_device()
+
+    # 6. bfloat16 steps (bf16 params, fp32 moments), timed and profiled
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params = init_params(cfg16, seed=0, device=device)
+    step = make_train_step(cfg16, AdamWConfig(lr=TRAIN_LR))
+    opt = init_opt_state(params)
+    params, opt, m = step(params, opt, next(data))          # warm-up
+    torch.cuda.synchronize()
+    losses = []
+    t = time.perf_counter()
+    for _ in range(BF16_STEPS):
+        params, opt, m = step(params, opt, next(data))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / BF16_STEPS
+    losses = [float(x) for x in losses]
+    print(f"  bf16 steps (remat=True): {wall:.4f} s/step, "
+          f"{batch * seq / wall:.1f} tokens/s (host clock over "
+          f"{BF16_STEPS} steps, ended by a synchronize); losses "
+          f"{[round(x, 4) for x in losses]}")
+    if not np.isfinite(losses).all():
+        fail(f"bf16 training losses are not finite: {losses}")
+    nxt = next(data)
+
+    def one_step():
+        nonlocal params, opt
+        t = time.perf_counter()
+        params, opt, _ = step(params, opt, nxt)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    profile_run("bf16 profiled train step", one_step)
+    del params, opt
+    free_device()
+    return launches
+
+
+PHASES = ("kernels", "serve", "decode", "hybrid", "ssm", "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -1117,6 +1494,12 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:93"),
     "ssm_scan": ("ssm_scan.cu", "src/repro/kernels/ssm_scan.py:80"),
     "wkv6_scan": ("wkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:85"),
+    "flash_attention_bwd_dq": (
+        "flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention_bwd.py:196"),
+    "flash_attention_bwd_dkv": (
+        "flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention_bwd.py:215"),
 }
 
 
@@ -1192,13 +1575,17 @@ def main() -> int:
             ssm_steps_check(cfg, params)
         runs.append(serve_phase(device, "rwkv6-7b", seed=3, exact=True,
                                 need=("wkv6_scan",), after_fp32=rwkv_checks))
+    if "train" in phases:
+        print("== train")
+        free_device()
+        runs.append(train_phase(device))
     if phases != PHASES:
         print(f"== partial run ({', '.join(phases)}) done in "
               f"{time.perf_counter() - t_start:.1f} s: no record")
         return 0
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, hybrid serve, hybrid decode, "
-          f"ssm serve): {runs}")
+          f"ssm serve, train): {runs}")
 
     record = {"kernels": [
         {"name": name, "route": "cuda",

@@ -23,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _DTYPES, _on_cpu
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, _DTYPES,
+                                                 _no_backward, _on_cpu)
 from repro_torch.kernels.ref import attend_cache_plain
 
 Tensor = torch.Tensor
@@ -109,6 +110,7 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     if _on_cpu(q):
         return decode_attention_plain(q, k, v, q_pos, kv_pos, window=window,
                                       scale=scale)
+    _no_backward("decode_attention", q, k, v)
     _check(q, k, v, q_pos, kv_pos, window)
     B, _, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]

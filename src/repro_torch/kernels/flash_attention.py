@@ -152,6 +152,18 @@ def _on_cpu(q: Tensor, what: str = "attention") -> bool:
     return False
 
 
+def _no_backward(what: str, *inputs: Optional[Tensor]) -> None:
+    """Raise where autograd records and an input of a kernel that has no
+    backward requires grad: its output would carry no ``grad_fn`` and cut
+    the gradient without a word (the JAX package cannot differentiate
+    such a ``pallas_call`` either). The CPU plain versions keep autograd."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input "
+            "requires grad (run it under torch.no_grad(), or on the CPU)")
+
+
 def flash_attention(q: Tensor, k: Tensor, v: Tensor,
                     seg_ids: Optional[Tensor] = None, *,
                     causal: bool = True, window: int = 0,
@@ -165,6 +177,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
     if _on_cpu(q):
         return flash_attention_plain(q, k, v, seg_ids, causal=causal,
                                      window=window, scale=scale)
+    _no_backward("flash_attention", q, k, v)
     o, _ = _launch(q, k, v, seg_ids, causal=causal, window=window,
                    scale=scale, with_lse=False)
     LAUNCHES["flash_attention"] += 1
@@ -179,6 +192,8 @@ def flash_attention_lse(q: Tensor, k: Tensor, v: Tensor, *,
     if _on_cpu(q):
         return flash_attention_lse_plain(q, k, v, causal=causal,
                                          window=window, scale=scale)
+    # differentiable through kernels/flash_attention_bwd.py::FlashAttention
+    _no_backward("flash_attention_lse", q, k, v)
     o, lse = _launch(q, k, v, None, causal=causal, window=window,
                      scale=scale, with_lse=True)
     LAUNCHES["flash_attention_lse"] += 1

@@ -3,8 +3,14 @@ recurrent scans.
 
 A tensor on the CPU runs the plain PyTorch version; a CUDA tensor runs
 the Hopper kernel (``kernels/flash_attention.py``,
-``kernels/decode_attention.py``, ``kernels/ssm_scan.py``,
-``kernels/wkv6_scan.py``) or raises. There is no block-size choice here:
+``kernels/flash_attention_bwd.py``, ``kernels/decode_attention.py``,
+``kernels/ssm_scan.py``, ``kernels/wkv6_scan.py``) or raises.
+Unsegmented :func:`attention` is differentiable on both devices (its
+backward is the FA-2 backward: kernels on the card, the plain formulas
+on the CPU); the segmented, decode and scan kernels have no backward, as
+in the JAX package, and raise on the card when autograd records and an
+input requires grad. Their plain versions on the CPU stay
+differentiable by autograd. There is no block-size choice here:
 the attention kernels tile the sequence themselves and the scans walk it
 token by token, masking the ragged edge; the scans' plain versions keep
 the JAX package's chunk rule. The one-token step functions
@@ -18,8 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_lse)
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.kernels.ref import LOG_DECAY_MIN, wkv6_log_decay
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.wkv6_scan import wkv6_scan
@@ -40,11 +46,11 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *,
         # the packed serving path: the segment-masked kernel
         return flash_attention(q, k, v, seg_ids, causal=causal,
                                window=window, scale=scale)
-    # every unsegmented call: the kernel that also yields the logsumexp,
-    # as the JAX package reaches its trainable forward here
-    o, _ = flash_attention_lse(q, k, v, causal=causal, window=window,
-                               scale=scale)
-    return o
+    # every unsegmented call: the trainable attention (forward kernel with
+    # the logsumexp, backward kernels for dq and dk/dv), as the JAX
+    # package reaches flash_attention_trainable here
+    return flash_attention_trainable(q, k, v, causal=causal, window=window,
+                                     scale=scale)
 
 
 def attend_cache(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,

@@ -31,13 +31,20 @@ NEG_INF = -1e30
 LOG_DECAY_MIN = -2.5
 
 
+def _acc_dtype(x: Tensor) -> torch.dtype:
+    """float32, or float64 for float64 inputs."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _gqa_scores(q: Tensor, k: Tensor) -> Tensor:
-    """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B, H, Sq, Sk) fp32 with GQA grouping."""
+    """(B,Sq,H,hd) x (B,Sk,KV,hd) -> (B, H, Sq, Sk) with GQA grouping, in
+    fp32 (fp64 for fp64 inputs, which gradient checks use)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     gs = H // KV
+    acc = _acc_dtype(q)
     qg = q.reshape(B, Sq, KV, gs, hd)
-    s = torch.einsum("bqgsd,bkgd->bgsqk", qg.float(), k.float())
+    s = torch.einsum("bqgsd,bkgd->bgsqk", qg.to(acc), k.to(acc))
     return s.reshape(B, H, Sq, k.shape[1])
 
 
@@ -95,7 +102,7 @@ def ref_attention(q: Tensor, k: Tensor, v: Tensor, *,
     p = torch.where(valid, p, torch.zeros_like(p))
     gs = H // KV
     pv = p.reshape(B, KV, gs, Sq, Sk)
-    o = torch.einsum("bgsqk,bkgd->bqgsd", pv, v.float())
+    o = torch.einsum("bgsqk,bkgd->bqgsd", pv, v.to(pv.dtype))
     o = o.reshape(B, Sq, H, hd).to(q.dtype)
     if return_lse:
         lse = torch.where(valid[..., 0], torch.logsumexp(s, dim=-1),

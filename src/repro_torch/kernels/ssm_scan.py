@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.flash_attention import _DTYPES, _on_cpu
+from repro_torch.kernels.flash_attention import _DTYPES, _no_backward, _on_cpu
 from repro_torch.kernels.ref import chunked_ssm_scan, pick_block
 
 Tensor = torch.Tensor
@@ -98,6 +98,7 @@ def ssm_scan(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     (B,H,hd,N) fp32 -> (y (B,T,H,hd) in x's dtype, final state fp32)."""
     if _on_cpu(x, "ssm_scan"):
         return ssm_scan_plain(x, dt, A, Bm, Cm, state)
+    _no_backward("ssm_scan", x, dt, A, Bm, Cm, state)
     _check(x, dt, A, Bm, Cm, state)
     B, T, H, hd = x.shape
     N = Bm.shape[2]

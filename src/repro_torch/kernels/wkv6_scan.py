@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.flash_attention import _DTYPES, _on_cpu
+from repro_torch.kernels.flash_attention import _DTYPES, _no_backward, _on_cpu
 from repro_torch.kernels.ref import chunked_wkv6, pick_block
 
 Tensor = torch.Tensor
@@ -93,6 +93,7 @@ def wkv6_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     (B,H,hd,hd) fp32 -> (o (B,T,H,hd) in r's dtype, final state fp32)."""
     if _on_cpu(r, "wkv6_scan"):
         return wkv6_scan_plain(r, k, v, w, u, state)
+    _no_backward("wkv6_scan", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
     B, T, H, hd = r.shape
     fn = _fn()

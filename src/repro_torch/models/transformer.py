@@ -14,12 +14,20 @@ Families ported so far:
   hybrid  — parallel attn + mamba2-style SSM heads (hymba), then mlp
   ssm     — RWKV6 time-mix + channel-mix (attention-free)
 The moe, vlm and audio families raise ``NotImplementedError``.
+
+``remat`` (training) recomputes each block's activations in the
+backward, as the JAX package's ``jax.checkpoint`` over the layer scan:
+False keeps them, True / "full" recomputes everything, "dots" keeps the
+outputs of the non-batched matrix products (the port's
+``dots_with_no_batch_dims_saveable``) and recomputes the rest.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
@@ -55,6 +63,18 @@ def _layer(blocks: dict, i: int) -> dict:
     """The i-th layer's params out of a stacked-blocks dict (views)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def _layers(blocks: dict, n: Optional[int] = None) -> list:
+    """Every layer's params out of a stacked-blocks dict, by one
+    ``unbind`` per leaf (views). Training takes this over ``_layer`` per
+    layer: an unbind's gradient is one stack of the layers' gradients,
+    where indexing each layer would add up one zero-padded full-stack
+    gradient per layer."""
+    n = _depth(blocks) if n is None else n
+    per_leaf = {k: _layers(v, n) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in blocks.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
 
 
 def _depth(blocks: dict) -> int:
@@ -138,15 +158,41 @@ def block_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
     return x + nn.apply_mlp(p["mlp"], cfg, h)
 
 
+Remat = Union[bool, str]
+REMAT = (False, True, "full", "dots")
+# what "dots" keeps: the outputs of products without batch dimensions
+# (every weight product; attention's batched products are recomputed)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat_kwargs(remat: Remat) -> Optional[dict]:
+    """``torch.utils.checkpoint`` arguments for one block, or None (keep
+    every activation)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    if not remat:
+        return None
+    kw: dict = {"use_reentrant": False}
+    if remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+    return kw
+
+
 def stack_forward(blocks: dict, cfg: ModelConfig, x: Tensor, *,
                   window: int = 0, causal: bool = True,
                   seg_ids: Optional[Tensor] = None,
-                  positions: Optional[Tensor] = None) -> Tensor:
-    """Apply every layer of ``blocks`` (leading layer axis) in order."""
-    for i in range(_depth(blocks)):
-        x = block_forward(_layer(blocks, i), cfg, x, window=window,
-                          causal=causal, seg_ids=seg_ids,
-                          positions=positions)
+                  positions: Optional[Tensor] = None,
+                  remat: Remat = False) -> Tensor:
+    """Apply every layer of ``blocks`` (leading layer axis) in order,
+    each block under ``remat`` (see the module docstring)."""
+    ckpt = _remat_kwargs(remat)
+    for p_l in _layers(blocks):
+        def block(h, p_l=p_l):
+            return block_forward(p_l, cfg, h, window=window, causal=causal,
+                                 seg_ids=seg_ids, positions=positions)
+        x = block(x) if ckpt is None else checkpoint(block, x, **ckpt)
     return x
 
 
@@ -164,11 +210,15 @@ def unembed(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
     return x @ head
 
 
-def forward(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    """Full forward: tokens (B, S) -> logits (B, S, vocab)."""
+def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
+            remat: Remat = False) -> Tensor:
+    """Full forward (training / logits-only prefill): tokens (B, S) ->
+    logits (B, S, vocab). The ported families have no MoE auxiliary
+    loss, so, unlike the JAX ``forward``, it returns the logits alone."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
-    x = stack_forward(params["blocks"], cfg, x, window=cfg.sliding_window)
+    x = stack_forward(params["blocks"], cfg, x, window=cfg.sliding_window,
+                      remat=remat)
     return unembed(params, cfg, x)
 
 

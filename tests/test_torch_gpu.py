@@ -1,7 +1,8 @@
 """Card-only tests of the port: each Hopper kernel against its plain
-PyTorch version on the card (attention, decode attention and the two
-recurrent scans), and the serving paths (one-shot and decode, dense and
-hybrid) launching the kernels.
+PyTorch version on the card (attention forward and backward, decode
+attention and the two recurrent scans), the serving paths (one-shot and
+decode, dense and hybrid) and a training step launching the kernels,
+and the kernels without a backward refusing inputs that require grad.
 
 Marked ``gpu``; every test asks the ``cuda`` fixture for the card and
 skips where there is none, so every pytest worker collects the same
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ssm_scan as ss
 from repro_torch.kernels import wkv6_scan as wk
 
@@ -350,3 +352,99 @@ def test_hybrid_serving_on_the_card_runs_the_scan_kernel(cuda):
     assert da.LAUNCHES["decode_attention"] > 0
     for (_, toks), got in zip(prompts, r["tokens"]):
         assert got == reference_decode(cfg, params, toks, 6)
+
+
+# ------------------------------------------------------ attention backward
+
+# the unsegmented CASES and the training main path
+BWD_CASES = [c[:8] for c in CASES if c[8] is None] + [
+    (2, 512, 512, 16, 8, 128, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_kernels_match_plain_version(cuda, dtype, case):
+    B, Sq, Sk, H, KV, hd, causal, window = case
+    q, k, v, _ = _inputs(cuda, dtype, B, Sq, Sk, H, KV, hd)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)) \
+        .to(device=cuda, dtype=dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_lse_plain(q, k, v, **kw)
+    atol, rtol = TOL[dtype]
+    got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = fab.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_backward_counts_launches_and_takes_a_strided_gradient(cuda):
+    """dq and dkv count one launch each per backward; the trainable
+    attention takes autograd's expanded (stride 0) incoming gradient."""
+    q, k, v, _ = _inputs(cuda, torch.float32, 1, 70, 70, 4, 2, 64)
+    before = dict(fab.LAUNCHES)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    fab.flash_attention_trainable(q, k, v).sum().backward()
+    o, lse = fa.flash_attention_lse_plain(q.detach(), k.detach(), v.detach())
+    want = fab.flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), o, lse, torch.ones_like(o))
+    for g, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-3)
+    assert fab.LAUNCHES == {n: c + 1 for n, c in before.items()}
+
+
+def test_train_step_on_the_card_runs_the_backward_kernels(cuda):
+    """One make_train_step step of a 2-layer qwen3 smoke model (head_dim
+    32) on the card launches dq and dkv once per layer and the forward
+    twice (remat recomputes it), and its loss and new params equal the
+    same step on the CPU (plain attention)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import init_params
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"), head_dim=32)
+    params = init_params(cfg, seed=0)
+    batch = next(token_batches(batch=2, seq_len=40, vocab=cfg.vocab_size))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3))
+    fa.reset_launches()
+    fab.reset_launches()
+    p1, _, m = step(params, init_opt_state(params), batch)
+    torch.cuda.synchronize()
+    assert fab.LAUNCHES == {"flash_attention_bwd_dq": cfg.n_layers,
+                            "flash_attention_bwd_dkv": cfg.n_layers}
+    assert fa.LAUNCHES["flash_attention_lse"] == 2 * cfg.n_layers
+    cpu = tree_map(lambda t: t.cpu(), params)
+    p2, _, m2 = step(cpu, init_opt_state(cpu), batch)
+    assert abs(float(m["loss"]) - float(m2["loss"])) < 1e-4
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+
+
+def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
+    """The segmented attention, decode and scan kernels have no backward:
+    where autograd records, an input that requires grad raises instead
+    of coming back without a grad_fn; under no_grad they run."""
+    q, k, v, seg = _inputs(cuda, torch.float32, 1, 64, 64, 4, 2, 64, [30])
+    qd, kd, vd, qp, kp = _decode_case(cuda, torch.float32, 2, 70, 4, 2, 64,
+                                      [69, 30], False)
+    ssm = _ssm_case(cuda, torch.float32, 1, 40, 2, 32, 16)
+    wkv = _wkv_case(cuda, torch.float32, 1, 40, 2, 32)
+    calls = {
+        "flash_attention": (lambda t: fa.flash_attention(t, k, v, seg), q),
+        "decode_attention": (
+            lambda t: da.decode_attention(t, kd, vd, qp, kp), qd),
+        "ssm_scan": (lambda t: ss.ssm_scan(t, *ssm[1:]), ssm[0]),
+        "wkv6_scan": (lambda t: wk.wkv6_scan(t, *wkv[1:]), wkv[0]),
+    }
+    for name, (call, x) in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(x.clone().requires_grad_(True))
+        with torch.no_grad():
+            call(x.clone().requires_grad_(True))
+        call(x)
