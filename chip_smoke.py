@@ -7,21 +7,28 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 
 1. device  — the card's name, count and power limit; builds the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, all started together, with ``-Xptxas -v``).
+   source, all started together, with ``-Xptxas -v``); fails unless
+   every head-dim instantiation of the bf16 forward attention kernel
+   holds ``HGMMA`` (tensor-core) instructions (``cuobjdump -sass``),
+   and prints their count, registers and spills.
 2. kernels — each kernel wrapper on the card against its plain PyTorch
    version on the same inputs: main-path shapes and edge shapes (prime
-   S, sliding window, non-causal, GQA groups 1 and 4, head_dim 128/64/32,
-   segments starting mid-tile; for the decode kernel ragged Sk, a
-   ring-buffer kv_pos with -1 holes, windows; for the two recurrent scans
-   T = 1, a prime T, a T that is not a multiple of 32, a nonzero input
-   state and decays far past the clamp, outputs and final states; for
+   S, sliding window, non-causal, GQA groups 1, 4 and 5, head_dim
+   128/64/32, segments starting mid-tile, segment ids out of order and
+   recurring, S = 64k + 1, a window crossed with a ragged last tile, q,
+   k and v as slices of one fused QKV buffer; for the decode kernel
+   ragged Sk, a ring-buffer kv_pos with -1 holes, windows; for the two
+   recurrent scans T = 1, a prime T, a T that is not a multiple of 32, a
+   nonzero input state and decays far past the clamp, outputs and final
+   states; for
    the two backward kernels dq, dk and dv on the same (q, k, v, o, lse,
    dO): the training shape, the JAX backward test's shapes with windows
    0 and 40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal and rows
    that see no kv), in float32 and bfloat16; then times the kernel, the
    plain version and a PyTorch library call (where one exists) at the
    main-path shapes with CUDA events (the library's attention backward
-   under the profiler).
+   under the profiler), and the forward with logsumexp also at hymba's
+   serving shape and a decode admission's, beside SDPA.
 3. serve   — full-width qwen3-1.7b (all 28 layers, random weights from a
    seeded generator on the card) through ``GraftPlanner.plan`` and
    ``GraftExecutor.serve`` over an ``InProcessTransport``, then
@@ -122,12 +129,16 @@ def smi_line() -> str:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def seg_ids(lengths, total, device):
+def seg_ids(segments, total, device):
+    """(1, total) int32: each segment is a length (ids 0, 1, ... in
+    order) or an (id, length) pair (any order, an id may recur); the pad
+    tail takes its own id, one past the largest."""
     import torch
     ids = []
-    for i, n in enumerate(lengths):
-        ids += [i] * n
-    ids += [len(lengths)] * (total - len(ids))     # pad tail: its own id
+    for i, sg in enumerate(segments):
+        sid, n = sg if isinstance(sg, tuple) else (i, sg)
+        ids += [sid] * n
+    ids += [max(ids, default=-1) + 1] * (total - len(ids))
     return torch.tensor(ids, dtype=torch.int32, device=device)[None]
 
 
@@ -153,21 +164,47 @@ def check_close(name, got, want, atol, rtol):
     return e
 
 
-# (label, B, Sq, Sk, H, KV, hd, causal, window, segment lengths or None)
+# (label, B, Sq, Sk, H, KV, hd, causal, window, segments or None (see
+# seg_ids), fused): with ``fused``, q, k and v are slices of one
+# (B, S, H + 2 KV, hd) buffer, as a fused QKV projection leaves them
 MAIN_PACKED = ("main packed", 1, 2048, 2048, 16, 8, 128, True, 0,
-               [300, 517, 211, 489, 250, 181])
-MAIN_PROMPT = ("main prompt", 1, 512, 512, 16, 8, 128, True, 0, None)
+               [300, 517, 211, 489, 250, 181], False)
+MAIN_PROMPT = ("main prompt", 1, 512, 512, 16, 8, 128, True, 0, None, False)
+# row 2 beside the main prompt: hymba's serving shape (window 1024) and
+# a decode admission's prompt (timed only)
+HYMBA_PROMPT = ("hymba prompt", 1, 2048, 2048, 25, 5, 64, True, 1024, None,
+                False)
+ADMIT_PROMPT = ("decode admission", 1, 128, 128, 16, 8, 128, True, 0, None,
+                False)
 CASES = [
     MAIN_PACKED,
     MAIN_PROMPT,
-    ("prime S, GQA 4", 2, 131, 131, 4, 1, 128, True, 0, None),
-    ("window, GQA 1, hd 64", 1, 257, 257, 4, 4, 64, True, 64, None),
-    ("non-causal Sq!=Sk, hd 32", 2, 97, 131, 8, 2, 32, False, 0, None),
+    ("prime S, GQA 4", 2, 131, 131, 4, 1, 128, True, 0, None, False),
+    ("window, GQA 1, hd 64", 1, 257, 257, 4, 4, 64, True, 64, None, False),
+    ("non-causal Sq!=Sk, hd 32", 2, 97, 131, 8, 2, 32, False, 0, None,
+     False),
     ("segments mid-tile, hd 64", 2, 200, 200, 8, 2, 64, True, 0,
-     [13, 50, 71, 40]),
+     [13, 50, 71, 40], False),
     ("segments + window, hd 32", 1, 173, 173, 4, 2, 32, True, 24,
-     [5, 90, 61]),
+     [5, 90, 61], False),
+    ("hymba GQA 5, window crossed, ragged tile", 1, 1100, 1100, 25, 5, 64,
+     True, 1024, None, False),
+    ("S = 64k + 1, hd 128", 2, 193, 193, 16, 8, 128, True, 0, None, False),
+    ("fused QKV slices", 2, 160, 160, 8, 2, 128, True, 0, None, True),
+    ("unsorted, recurring segment ids", 1, 300, 300, 8, 2, 64, True, 0,
+     [(5, 40), (2, 90), (5, 70), (0, 60), (9, 40)], False),
 ]
+
+
+def attention_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd, fused):
+    """q (B, Sq, H, hd), k and v (B, Sk, KV, hd); with ``fused`` (Sq ==
+    Sk) strided slices of one (B, S, H + 2 KV, hd) buffer."""
+    if fused:
+        qkv = rand(gen, (B, Sq, H + 2 * KV, hd), dtype, device)
+        return qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    return (rand(gen, (B, Sq, H, hd), dtype, device),
+            rand(gen, (B, Sk, KV, hd), dtype, device),
+            rand(gen, (B, Sk, KV, hd), dtype, device))
 
 
 def kernel_phase(device) -> dict:
@@ -183,10 +220,10 @@ def kernel_phase(device) -> dict:
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         atol, rtol = TOL[dname]
-        for label, B, Sq, Sk, H, KV, hd, causal, window, segs in CASES:
-            q = rand(gen, (B, Sq, H, hd), dtype, device)
-            k = rand(gen, (B, Sk, KV, hd), dtype, device)
-            v = rand(gen, (B, Sk, KV, hd), dtype, device)
+        for (label, B, Sq, Sk, H, KV, hd, causal, window, segs,
+             fused) in CASES:
+            q, k, v = attention_inputs(gen, dtype, device, B, Sq, Sk, H, KV,
+                                       hd, fused)
             seg = None if segs is None else \
                 seg_ids(segs, Sq, device).expand(B, Sq).contiguous()
             kw = dict(causal=causal, window=window)
@@ -507,62 +544,76 @@ def timing_phase(device) -> dict:
     """Kernel, plain version and library call at the main-path shapes
     (bfloat16, the serving dtype), as device time per call (``time_ms``).
     For the prefill kernels the L2 cache is warm, as for a kernel fed by
-    the projection just before it."""
+    the projection just before it. Row 2 is also timed, beside SDPA
+    alone, at hymba's serving shape and a decode admission's."""
+    import torch
+    out = {}
+    gen = torch.Generator().manual_seed(1)
+    for case, name, record in ((MAIN_PACKED, "flash_attention", True),
+                               (MAIN_PROMPT, "flash_attention_lse", True),
+                               (HYMBA_PROMPT, "flash_attention_lse", False),
+                               (ADMIT_PROMPT, "flash_attention_lse", False)):
+        r = time_forward(device, gen, case, name, with_plain=record)
+        out[name if record else f"{name} {case[0]}"] = r
+    out["decode_attention"] = time_decode(device, gen)
+    out.update(time_scans(device, gen))
+    out.update(time_bwd(device, gen))
+    return out
+
+
+def time_forward(device, gen, case, name, *, with_plain) -> dict:
+    """Row 1 (segmented) or row 2 (o and lse) at one self-attention
+    shape. Bound: q, k, v and o in bf16 (and seg ids or lse) once, and
+    4 hd FLOPs per valid (head, q, k) pair. Library: one SDPA call on
+    the same inputs (o only), ``is_causal`` where the mask is causal
+    alone, else the boolean mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import _mask, _positions
 
-    gen = torch.Generator().manual_seed(1)
-    out = {}
-    esz = 2
-    for case, name in ((MAIN_PACKED, "flash_attention"),
-                       (MAIN_PROMPT, "flash_attention_lse")):
-        _, B, S, _, H, KV, hd, causal, window, segs = case
-        q = rand(gen, (B, S, H, hd), torch.bfloat16, device)
-        k = rand(gen, (B, S, KV, hd), torch.bfloat16, device)
-        v = rand(gen, (B, S, KV, hd), torch.bfloat16, device)
-        pos = _positions(S, B, device)
-        mask = _mask(pos, pos, causal=causal, window=window)
-        nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * esz
-        if segs is not None:
-            seg = seg_ids(segs, S, device)
-            mask = mask & (seg[:, :, None] == seg[:, None, :])
-            nbytes += B * S * 4
-            run = lambda: fa.flash_attention(q, k, v, seg)         # noqa
-            plain = lambda: fa.flash_attention_plain(q, k, v, seg)  # noqa
-        else:
-            nbytes += B * H * S * 4                                 # lse
-            run = lambda: fa.flash_attention_lse(q, k, v)           # noqa
-            plain = lambda: fa.flash_attention_lse_plain(q, k, v)   # noqa
-        # QK^T and PV: 2 * hd multiply-adds per valid (q, k) pair and head
-        pairs = int(mask.sum().item())
-        flops = 4.0 * hd * H * pairs
-        bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
-        # the library yardstick: SDPA (o only, no lse), with the packed
-        # case's causal-and-segment mask given as a boolean mask
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        lib_kw = dict(is_causal=True) if segs is None else \
-            dict(attn_mask=mask[:, None])
-        library = lambda: F.scaled_dot_product_attention(           # noqa
-            qt, kt, vt, enable_gqa=True, **lib_kw)
-        ms, host_ms = time_ms(run)
-        out[name] = {"ms": ms, "host_ms": host_ms,
-                     "plain_ms": time_ms(plain)[0],
-                     "library_ms": time_ms(library)[0], "bound_ms": bms,
-                     "bound_by": by, "bytes": nbytes, "flops": flops,
-                     "valid_pairs": pairs, "shape": (B, S, H, KV, hd)}
-        r = out[name]
-        print(f"  {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms "
-              f"(host {host_ms:.4f} ms per call), plain "
-              f"{r['plain_ms']:.4f} ms, library (SDPA) "
-              f"{r['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}: "
-              f"{nbytes} B, {flops:.3e} FLOP over {pairs} valid pairs); "
-              "device times")
-    out["decode_attention"] = time_decode(device, gen)
-    out.update(time_scans(device, gen))
-    out.update(time_bwd(device, gen))
-    return out
+    label, B, S, _, H, KV, hd, causal, window, segs, _ = case
+    q, k, v = attention_inputs(gen, torch.bfloat16, device, B, S, S, H, KV,
+                               hd, False)
+    pos = _positions(S, B, device)
+    mask = _mask(pos, pos, causal=causal, window=window)
+    nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 2
+    if segs is not None:
+        seg = seg_ids(segs, S, device)
+        mask = mask & (seg[:, :, None] == seg[:, None, :])
+        nbytes += B * S * 4
+        run = lambda: fa.flash_attention(q, k, v, seg, window=window)  # noqa
+        plain = lambda: fa.flash_attention_plain(                      # noqa
+            q, k, v, seg, window=window)
+    else:
+        nbytes += B * H * S * 4                                 # lse
+        run = lambda: fa.flash_attention_lse(q, k, v, window=window)  # noqa
+        plain = lambda: fa.flash_attention_lse_plain(                 # noqa
+            q, k, v, window=window)
+    # QK^T and PV: 2 * hd multiply-adds per valid (q, k) pair and head
+    pairs = int(mask.sum().item())
+    flops = 4.0 * hd * H * pairs
+    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_kw = dict(is_causal=True) if segs is None and window == 0 else \
+        dict(attn_mask=mask[:, None])
+    library = lambda: F.scaled_dot_product_attention(           # noqa
+        qt, kt, vt, enable_gqa=True, **lib_kw)
+    ms, host_ms = time_ms(run)
+    r = {"ms": ms, "host_ms": host_ms,
+         "plain_ms": time_ms(plain)[0] if with_plain else None,
+         "library_ms": time_ms(library)[0], "bound_ms": bms,
+         "bound_by": by, "bytes": nbytes, "flops": flops,
+         "valid_pairs": pairs, "shape": (B, S, H, KV, hd), "window": window}
+    plain_txt = f"plain {r['plain_ms']:.4f} ms, " if with_plain else ""
+    lib_txt = "is_causal" if "is_causal" in lib_kw else "boolean mask"
+    print(f"  {name} bf16 {label} {r['shape']} window {window}: kernel "
+          f"{ms:.4f} ms (host {host_ms:.4f} ms per call), {plain_txt}"
+          f"library (SDPA, {lib_txt}) {r['library_ms']:.4f} ms, "
+          f"{ms / r['library_ms']:.2f}x SDPA; "
+          f"bound {bms:.4f} ms ({by}: {nbytes} B, {flops:.3e} FLOP over "
+          f"{pairs} valid pairs), {100 * bms / ms:.1f}% of it; device times")
+    return r
 
 
 def time_decode(device, gen) -> dict:
@@ -781,7 +832,7 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
 # substrings of the port's attention and scan kernels (csrc/*.cu)
-ATTENTION_NAMES = ("attn_fwd_kernel", "attn_bwd_dq_kernel",
+ATTENTION_NAMES = ("attn_fwd_wgmma", "attn_fwd_scalar", "attn_bwd_dq_kernel",
                    "attn_bwd_dkv_kernel", "decode_attn_kernel",
                    "decode_combine_kernel")
 SCAN_NAMES = ("ssm_scan_kernel", "wkv6_scan_kernel")
@@ -1482,6 +1533,49 @@ def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
     return launches
 
 
+def ptxas_usage(log: str) -> dict:
+    """{kernel (mangled): {"registers": n, "spills": text}} from an
+    ``nvcc -Xptxas -v`` log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = {}
+        elif fn is not None and "spill stores" in line:
+            out[fn]["spills"] = line.strip()
+        elif fn is not None and "Used" in line and "registers" in line:
+            out[fn]["registers"] = int(
+                line.split("Used")[1].split("registers")[0])
+    return out
+
+
+def tensor_core_check(log: str) -> None:
+    """The bf16 forward runs on the tensor cores: every instantiation of
+    ``attn_fwd_wgmma`` (hd 32, 64, 128) in the built library must hold
+    HGMMA instructions (``cuobjdump -sass``). Prints each one's count
+    and, from this build's ptxas log, its registers and spills."""
+    import shutil
+    from repro_torch.kernels import build
+    lib = build._target(build.CSRC / "flash_attention.cu")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    wg = {f: n for f, n in counts.items() if "attn_fwd_wgmma" in f}
+    usage = ptxas_usage(log)
+    for f, n in sorted(wg.items()):
+        print(f"  tensor cores: {f}: {n} HGMMA; ptxas "
+              f"{usage.get(f, 'not rebuilt in this run')}")
+    if len(wg) != 3 or not all(wg.values()):
+        fail(f"the bf16 forward kernel has no HGMMA instructions: {wg}")
+
+
 PHASES = ("kernels", "serve", "decode", "hybrid", "ssm", "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
@@ -1534,6 +1628,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {stem}: {line.strip()}")
+    tensor_core_check(logs.get("flash_attention", ""))
 
     # a partial run (``--phases kernels,hybrid``: a first check of a new
     # kernel) checks what it runs and prints no record and no result

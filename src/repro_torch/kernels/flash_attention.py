@@ -1,6 +1,6 @@
 """Flash-attention forward on Hopper: wrappers of csrc/flash_attention.cu.
 
-Two wrappers over one CUDA kernel, each the counterpart of one Pallas
+Two wrappers over one CUDA source, each the counterpart of one Pallas
 TPU kernel of the JAX package:
 
   * :func:`flash_attention` — ``repro/kernels/flash_attention.py::
@@ -8,6 +8,11 @@ TPU kernel of the JAX package:
     serving path);
   * :func:`flash_attention_lse` — ``repro/kernels/flash_attention_bwd.py::
     _flash_fwd`` (the unsegmented forward plus the per-row logsumexp).
+
+The dtype picks the kernel in the source: bfloat16 runs on the tensor
+cores (``wgmma``, operands loaded by TMA), float32 on scalar FMA. A
+bfloat16 tensor that TMA cannot read (a base not 16-byte aligned, or a
+stride that is not a multiple of 16 bytes) raises ``ValueError``.
 
 A tensor on the CPU goes to the plain version beside each wrapper
 (:func:`flash_attention_plain`, :func:`flash_attention_lse_plain`); a
@@ -97,6 +102,20 @@ def _check(q: Tensor, k: Tensor, v: Tensor, seg_ids: Optional[Tensor],
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head_dim axis must be contiguous")
+        if q.dtype == torch.bfloat16:
+            # the bf16 kernel loads q, k and v by TMA: a 16-byte aligned
+            # base, and every stride of an axis longer than 1 a multiple
+            # of 16 bytes (o is allocated contiguous here)
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}'s base address is not 16-byte "
+                                 "aligned (the bf16 kernel loads it by TMA)")
+            for ax in range(3):
+                nbytes = t.stride(ax) * t.element_size()
+                if t.shape[ax] > 1 and nbytes % 16:
+                    raise ValueError(
+                        f"{name}'s stride along axis {ax} is {nbytes} bytes,"
+                        " not a multiple of 16 (the bf16 kernel loads it by "
+                        "TMA)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if max(B * H, Sq, Sk) >= 2 ** 31 or B * H > 65535:

@@ -37,34 +37,60 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(device, dtype, B, Sq, Sk, H, KV, hd, segs=None, seed=0):
+def _inputs(device, dtype, B, Sq, Sk, H, KV, hd, segs=None, seed=0,
+            fused=False):
+    """q, k, v and seg ids. ``segs``: segment lengths (ids 0, 1, ... in
+    order) or (id, length) pairs (any order, an id may recur); the pad
+    tail takes the next id. ``fused`` (Sq == Sk): q, k and v are slices
+    of one (B, S, H + 2 KV, hd) buffer."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(s, generator=g).to(device=device, dtype=dtype)
-               for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    if fused:
+        qkv = torch.randn((B, Sq, H + 2 * KV, hd), generator=g).to(
+            device=device, dtype=dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    else:
+        q, k, v = (torch.randn(s, generator=g).to(device=device, dtype=dtype)
+                   for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                             (B, Sk, KV, hd)))
     seg = None
     if segs is not None:
-        ids = np.concatenate([np.full(n, i) for i, n in enumerate(segs)]
-                             + [np.full(Sq - sum(segs), len(segs))])
+        pairs = [sg if isinstance(sg, tuple) else (i, sg)
+                 for i, sg in enumerate(segs)]
+        ids = np.concatenate(
+            [np.full(n, i) for i, n in pairs]
+            + [np.full(Sq - sum(n for _, n in pairs),
+                       max(i for i, _ in pairs) + 1)])
         seg = torch.tensor(ids, dtype=torch.int32,
                            device=device)[None].expand(B, Sq).contiguous()
     return q, k, v, seg
 
 
-CASES = [  # B, Sq, Sk, H, KV, hd, causal, window, segments
-    (1, 2048, 2048, 16, 8, 128, True, 0, [300, 517, 211, 489, 250, 181]),
-    (2, 131, 131, 4, 1, 128, True, 0, None),
-    (1, 257, 257, 4, 4, 64, True, 64, None),
-    (2, 97, 131, 8, 2, 32, False, 0, None),
-    (2, 200, 200, 8, 2, 64, True, 0, [13, 50, 71, 40]),
-    (1, 173, 173, 4, 2, 32, True, 24, [5, 90, 61]),
+CASES = [  # B, Sq, Sk, H, KV, hd, causal, window, segments, fused qkv
+    (1, 2048, 2048, 16, 8, 128, True, 0, [300, 517, 211, 489, 250, 181],
+     False),
+    (2, 131, 131, 4, 1, 128, True, 0, None, False),
+    (1, 257, 257, 4, 4, 64, True, 64, None, False),
+    (2, 97, 131, 8, 2, 32, False, 0, None, False),
+    (2, 200, 200, 8, 2, 64, True, 0, [13, 50, 71, 40], False),
+    (1, 173, 173, 4, 2, 32, True, 24, [5, 90, 61], False),
+    # hymba: GQA 5, a window crossed, a ragged last tile
+    (1, 1100, 1100, 25, 5, 64, True, 1024, None, False),
+    # S = 64k + 1 at hd 128
+    (2, 193, 193, 16, 8, 128, True, 0, None, False),
+    # q, k and v strided slices of one fused QKV buffer
+    (2, 160, 160, 8, 2, 128, True, 0, None, True),
+    # segment ids out of order, id 5 in two separate runs
+    (1, 300, 300, 8, 2, 64, True, 0,
+     [(5, 40), (2, 90), (5, 70), (0, 60), (9, 40)], False),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", CASES)
 def test_kernels_match_plain_versions(cuda, dtype, case):
-    B, Sq, Sk, H, KV, hd, causal, window, segs = case
-    q, k, v, seg = _inputs(cuda, dtype, B, Sq, Sk, H, KV, hd, segs)
+    B, Sq, Sk, H, KV, hd, causal, window, segs, fused = case
+    q, k, v, seg = _inputs(cuda, dtype, B, Sq, Sk, H, KV, hd, segs,
+                           fused=fused)
     atol, rtol = TOL[dtype]
     kw = dict(causal=causal, window=window)
     got = fa.flash_attention(q, k, v, seg, **kw)
@@ -89,6 +115,37 @@ def test_wrappers_count_launches(cuda):
     assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     assert fa.LAUNCHES["flash_attention_lse"] == \
         before["flash_attention_lse"] + 1
+
+
+def test_bf16_views_tma_cannot_read_raise_on_the_card(cuda):
+    """The bf16 kernel loads by TMA: a view with a base off 16 bytes
+    raises before any launch; the same view in float32 runs on the
+    scalar kernel and matches the plain version."""
+    before = dict(fa.LAUNCHES)
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.randn(1, 64, 4 * 32 + 1,
+                          generator=torch.Generator().manual_seed(0))
+        q = buf.to(device=cuda, dtype=dtype)[:, :, 1:].unflatten(2, (4, 32))
+        k = q[:, :, :2]
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="TMA"):
+                fa.flash_attention(q, k, k)
+            assert fa.LAUNCHES == before
+        else:
+            torch.testing.assert_close(fa.flash_attention(q, k, k),
+                                       fa.flash_attention_plain(q, k, k),
+                                       atol=2e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_empty_kv_gives_zeros(cuda, dtype):
+    """Sk = 0 (no kv at all): both kernels launch and every row is 0,
+    as for a row whose kv is all masked."""
+    q = torch.randn(1, 70, 4, 64, device=cuda).to(dtype)
+    k = torch.zeros(1, 0, 2, 64, device=cuda, dtype=dtype)
+    o = fa.flash_attention(q, k, k, causal=False)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and not o.any()
 
 
 def test_executor_on_the_card_runs_the_kernels(cuda):

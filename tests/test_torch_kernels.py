@@ -225,6 +225,16 @@ def _bad_inputs():
         "seg cross": (q, torch.zeros(1, 9, 2, 32), torch.zeros(1, 9, 2, 32),
                       seg, 0, ValueError),
         "window": (q, k, k, None, -1, ValueError),
+        # the bf16 kernel loads q, k and v by TMA: 16-byte aligned bases,
+        # strides that are multiples of 16 bytes
+        "bf16 base not 16-byte aligned": (
+            torch.zeros(1 * 8 * 4 * 32 + 1, dtype=torch.bfloat16)[1:]
+            .view(1, 8, 4, 32), k.bfloat16(), k.bfloat16(), None, 0,
+            ValueError),
+        "bf16 seq stride not a multiple of 16 bytes": (
+            torch.zeros(1, 8, 4 * 32 + 4, dtype=torch.bfloat16)[:, :, :128]
+            .unflatten(2, (4, 32)), k.bfloat16(), k.bfloat16(), None, 0,
+            ValueError),
     }
 
 
@@ -239,3 +249,27 @@ def test_launch_checks_accept_the_main_path_layout():
     q = torch.zeros(1, 40, 16, 128, dtype=torch.bfloat16)
     k = torch.zeros(1, 40, 8, 128, dtype=torch.bfloat16)
     tfa._check(q, k, k, torch.zeros(1, 40, dtype=torch.int32), 0)
+
+
+def test_launch_checks_accept_fused_qkv_slices():
+    """q, k and v as slices of one fused (B, S, H + 2 KV, hd) bf16
+    buffer: strided, yet every base and stride TMA reads is a multiple
+    of 16 bytes."""
+    H, KV = 16, 8
+    qkv = torch.zeros(2, 40, H + 2 * KV, 128, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    assert not q.is_contiguous() and k.data_ptr() % 16 == 0
+    tfa._check(q, k, v, None, 0)
+
+
+def test_tma_checks_apply_to_bf16_only():
+    """float32 runs on the scalar kernel, which reads through plain
+    loads: a view TMA could not take stays accepted there."""
+    def view(dtype):
+        return torch.zeros(1, 8, 4 * 32 + 1, dtype=dtype)[:, :, 1:] \
+            .unflatten(2, (4, 32))
+    q, k = view(torch.float32), torch.zeros(1, 8, 2, 32)
+    assert q.data_ptr() % 16 and (q.stride(1) * 4) % 16
+    tfa._check(q, k, k, None, 0)
+    with pytest.raises(ValueError, match="TMA"):
+        tfa._check(view(torch.bfloat16), k.bfloat16(), k.bfloat16(), None, 0)
