@@ -8,9 +8,10 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 1. device  — the card's name, count and power limit; builds the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, all started together, with ``-Xptxas -v``); fails unless
-   every head-dim instantiation of the bf16 forward attention kernel
-   holds ``HGMMA`` (tensor-core) instructions (``cuobjdump -sass``),
-   and prints their count, registers and spills.
+   every head-dim instantiation of the bf16 attention kernels (the
+   forward, and the backward's dq and dkv) holds ``HGMMA`` (tensor-core)
+   instructions (``cuobjdump -sass``) and spills no register, and prints
+   their count, registers and spills.
 2. kernels — each kernel wrapper on the card against its plain PyTorch
    version on the same inputs: main-path shapes and edge shapes (prime
    S, sliding window, non-causal, GQA groups 1, 4 and 5, head_dim
@@ -23,8 +24,10 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    states; for
    the two backward kernels dq, dk and dv on the same (q, k, v, o, lse,
    dO): the training shape, the JAX backward test's shapes with windows
-   0 and 40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal and rows
-   that see no kv), in float32 and bfloat16; then times the kernel, the
+   0 and 40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal, rows
+   that see no kv, hymba's GQA 5 with window 1024 at S = 1100, fused-QKV
+   slices), in float32 (scalar bodies) and bfloat16 (wgmma bodies); then
+   times the kernel, the
    plain version and a PyTorch library call (where one exists) at the
    main-path shapes with CUDA events (the library's attention backward
    under the profiler), and the forward with logsumexp also at hymba's
@@ -71,22 +74,27 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    (remat=True) whose loss must fall, launching the forward kernel 2 x
    28 and dq and dkv 28 times a step, exactly; a checkpoint of the
    trained params restored bit for bit and a resumed step equal to the
-   step without the round trip; then bfloat16 steps (fp32 moments),
+   step without the round trip; then in bfloat16 (fp32 moments) the
+   loss and gradients through the kernels against the plain attention's
+   (worst leaf's relative L2 within ``BF16_GRAD_REL_L2``), and steps
+   launching the forward, dq and dkv exactly as the float32 steps do,
    timed, and one profiled.
 Each model is freed before the next one loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model,
-and the float32 AdamW steps, each path's counters zeroed just before it
-and read just after.
+and the float32 AdamW steps and timed bfloat16 steps, each path's
+counters zeroed just before it and read just after.
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -307,32 +315,37 @@ def decode_kernel_cases(device, gen) -> dict:
     return worst
 
 
-# (label, B, Sq, Sk, H, KV, hd, causal, window): the training main path,
-# tests/test_kernels.py::test_flash_attention_backward's shapes with
+# (label, B, Sq, Sk, H, KV, hd, causal, window, fused): the training main
+# path, tests/test_kernels.py::test_flash_attention_backward's shapes with
 # windows 0 and 40 (hd 16 raised to 32, the kernels' least head dim), GQA
-# groups 4 and 1, a prime S, Sq != Sk non-causal, and rows that see no kv
-# (non-causal, window 2, Sq > Sk: their lse is NEG_INF)
-BWD_MAIN = ("main path", 2, 512, 512, 16, 8, 128, True, 0)
+# groups 4 and 1, a prime S, Sq != Sk non-causal, rows that see no kv
+# (non-causal, window 2, Sq > Sk: their lse is NEG_INF), hymba's GQA 5
+# with a window crossed and a ragged last tile, and q, k and v as slices
+# of one fused QKV buffer
+BWD_MAIN = ("main path", 2, 512, 512, 16, 8, 128, True, 0, False)
 BWD_CASES = [BWD_MAIN] + [
-    (f"kernel-test shape, window {w}", B, S, S, H, KV, hd, True, w)
+    (f"kernel-test shape, window {w}", B, S, S, H, KV, hd, True, w, False)
     for B, S, H, KV, hd in ((1, 64, 2, 1, 32), (2, 96, 4, 2, 32),
                             (1, 128, 8, 8, 32))
     for w in (0, 40)] + [
-    ("prime S, GQA 4", 2, 131, 131, 4, 1, 128, True, 0),
-    ("window, GQA 1, hd 64", 1, 257, 257, 4, 4, 64, True, 64),
-    ("non-causal Sq!=Sk, hd 32", 2, 97, 131, 8, 2, 32, False, 0),
-    ("rows with no valid kv", 1, 100, 40, 4, 2, 64, False, 2),
+    ("prime S, GQA 4", 2, 131, 131, 4, 1, 128, True, 0, False),
+    ("window, GQA 1, hd 64", 1, 257, 257, 4, 4, 64, True, 64, False),
+    ("non-causal Sq!=Sk, hd 32", 2, 97, 131, 8, 2, 32, False, 0, False),
+    ("rows with no valid kv", 1, 100, 40, 4, 2, 64, False, 2, False),
+    ("hymba GQA 5, window crossed, ragged tile", 1, 1100, 1100, 25, 5, 64,
+     True, 1024, False),
+    ("fused QKV slices", 2, 160, 160, 8, 2, 128, True, 0, True),
 ]
 
 
-def bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd, causal, window):
+def bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd, causal, window,
+               fused):
     """q, k, v, o, lse, dO for one backward case: o and lse from the
     plain forward, so the kernels and the plain backward see the same
     six tensors."""
     from repro_torch.kernels import flash_attention as fa
-    q = rand(gen, (B, Sq, H, hd), dtype, device)
-    k = rand(gen, (B, Sk, KV, hd), dtype, device)
-    v = rand(gen, (B, Sk, KV, hd), dtype, device)
+    q, k, v = attention_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd,
+                               fused)
     do = rand(gen, (B, Sq, H, hd), dtype, device)
     o, lse = fa.flash_attention_lse_plain(q, k, v, causal=causal,
                                           window=window)
@@ -341,16 +354,19 @@ def bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd, causal, window):
 
 def bwd_kernel_cases(device, gen) -> dict:
     """Kernels 4 and 5 (dq; dk and dv) against the plain FA-2 backward
-    on the same (q, k, v, o, lse, dO)."""
+    on the same (q, k, v, o, lse, dO): float32 on the scalar bodies,
+    bfloat16 on the wgmma bodies. Every gradient must be finite (rows
+    that see no kv give zeros)."""
     import torch
     from repro_torch.kernels import flash_attention_bwd as fab
     worst = {"flash_attention_bwd_dq": {}, "flash_attention_bwd_dkv": {}}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         atol, rtol = TOL[dname]
-        for label, B, Sq, Sk, H, KV, hd, causal, window in BWD_CASES:
+        for (label, B, Sq, Sk, H, KV, hd, causal, window,
+             fused) in BWD_CASES:
             args = bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd,
-                              causal, window)
+                              causal, window, fused)
             kw = dict(causal=causal, window=window)
             got = fab.flash_attention_bwd(*args, **kw)
             want = fab.flash_attention_bwd_plain(*args, **kw)
@@ -359,6 +375,8 @@ def bwd_kernel_cases(device, gen) -> dict:
             e = [check_close(f"flash_attention_bwd {n} {tag}", g, w, atol,
                              rtol) for n, g, w in zip(("dq", "dk", "dv"),
                                                       got, want)]
+            if not all(bool(torch.isfinite(g).all()) for g in got):
+                fail(f"flash_attention_bwd {tag}: a gradient is not finite")
             if not all(g.dtype == dtype for g in got):
                 fail(f"flash_attention_bwd {tag}: gradient dtypes "
                      f"{[g.dtype for g in got]}")
@@ -731,7 +749,7 @@ def time_bwd(device, gen) -> dict:
     from repro_torch.kernels import flash_attention_bwd as fab
     from repro_torch.kernels.ref import _mask, _positions
 
-    _, B, S, _, H, KV, hd, causal, window = BWD_MAIN
+    _, B, S, _, H, KV, hd, causal, window, _ = BWD_MAIN
     dt = torch.bfloat16
     q = rand(gen, (B, S, H, hd), dt, device)
     k = rand(gen, (B, S, KV, hd), dt, device)
@@ -771,8 +789,11 @@ def time_bwd(device, gen) -> dict:
               f"(dq, dk and dv together), library (SDPA backward, "
               f"profiled) {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes']} B, {r['flops']:.3e} FLOP over "
-              f"{pairs} valid (head, q, k) pairs); device times")
-    print(f"  SDPA backward kernels: {sorted(set(lib_names))}")
+              f"{pairs} valid (head, q, k) pairs; {r['bound_ms'] / r['ms']:.1%}"
+              f" of it); device times")
+    pair = sum(r["ms"] for r in out.values())
+    print(f"  dq + dkv {pair:.4f} ms, {pair / library_ms:.2f}x SDPA's whole "
+          f"backward; SDPA backward kernels: {sorted(set(lib_names))}")
     return out
 
 
@@ -832,8 +853,7 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
 # substrings of the port's attention and scan kernels (csrc/*.cu)
-ATTENTION_NAMES = ("attn_fwd_wgmma", "attn_fwd_scalar", "attn_bwd_dq_kernel",
-                   "attn_bwd_dkv_kernel", "decode_attn_kernel",
+ATTENTION_NAMES = ("attn_fwd_", "attn_bwd_", "decode_attn_kernel",
                    "decode_combine_kernel")
 SCAN_NAMES = ("ssm_scan_kernel", "wkv6_scan_kernel")
 
@@ -868,8 +888,8 @@ def profile_run(label, run) -> float:
     """Call ``run`` (which returns its wall seconds, ended by a
     synchronize) under ``torch.profiler`` and print where the device
     time went: kernel time by group, the device's busy share of the wall
-    time (profiling slows the host, so the share reads low) and the top
-    kernels. Returns the device time in µs."""
+    time (profiling slows the host, so the share reads low), the top
+    kernels and each attention kernel. Returns the device time in µs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -895,7 +915,7 @@ def profile_run(label, run) -> float:
         else:
             g = "other kernels"
         groups[g] += us
-        rows.append((us, name))
+        rows.append((us, name, g))
     total = sum(groups.values())
     if total == 0:
         print(f"  {label}: the profiler saw no device time")
@@ -905,8 +925,11 @@ def profile_run(label, run) -> float:
     for g, us in groups.items():
         print(f"    {g}: {us / 1e3:.2f} ms ({100 * us / total:.1f}% of "
               "device time)")
-    for us, name in sorted(rows, reverse=True)[:6]:
+    for us, name, _ in sorted(rows, reverse=True)[:6]:
         print(f"    top: {us / 1e3:.2f} ms {name[:90]}")
+    for us, name, g in sorted(rows, reverse=True):
+        if g == "attention kernels":
+            print(f"    attention: {us / 1e3:.2f} ms {name[:90]}")
     return total
 
 
@@ -1312,6 +1335,16 @@ TRAIN_LR = 1e-3
 GRAD_REL_L2 = 1e-3
 LOSS_RTOL = 1e-4
 BF16_STEPS = 5
+# bfloat16 gradients through the kernels against the same bf16 model
+# through the plain attention (fp32 inside): both round every activation
+# to bf16 (2^-8 relative) at different places, and 28 layers carry those
+# roundings into every gradient. Scalar bf16 kernels (fp32 P and dS, as
+# the TPU kernels keep them) gave a worst leaf (blocks/attn/wq) of
+# 1.761e-2 at this input on the H100; the wgmma bodies also round P and
+# dS to bf16 before the second products (2^-9 per term). The bound
+# leaves ~40% over the first; a wrong tile or mask moves whole rows and
+# lands far above it.
+BF16_GRAD_REL_L2 = 2.5e-2
 
 
 def rel_l2(a, b) -> float:
@@ -1346,16 +1379,46 @@ def plain_attention(q, k, v, *, causal=True, window=0, scale=None,
                                         window=window, scale=scale)[0]
 
 
-def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
+@contextlib.contextmanager
+def oracle_attention():
+    """``ops.attention`` is ``plain_attention`` inside the block."""
+    from repro_torch.kernels import ops
+    saved = ops.attention
+    ops.attention = plain_attention
+    try:
+        yield
+    finally:
+        ops.attention = saved
+
+
+def bf16_grads_check(params, cfg, tokens, labels) -> tuple:
+    """bfloat16 ``loss_and_grads`` through the kernels against the same
+    call through ``plain_attention`` (autograd of the plain forward, fp32
+    inside): -> (worst per-leaf relative L2, its leaf, the two losses)."""
+    import torch
+    from repro_torch.training.train_step import loss_and_grads
+    loss_k, _, g_k = loss_and_grads(params, cfg, tokens, labels, remat=False)
+    with oracle_attention():
+        loss_o, _, g_o = loss_and_grads(params, cfg, tokens, labels,
+                                        remat=False)
+    torch.cuda.synchronize()
+    rel, leaf = worst_leaf(g_k, g_o)
+    return rel, leaf, float(loss_k), float(loss_o)
+
+
+def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> list:
     """Train full-width qwen3-1.7b (28 layers, random weights from a
     seeded generator on the card) on the ``token_batches`` stream:
     float32 gradients through the kernels against the plain-attention
     oracle, the remat variants, AdamW steps (the counted path: every
     layer's attention launches the forward kernel twice, remat's
     recompute included, and dq and dkv once per step), a checkpoint round
-    trip and a resumed step, then bfloat16 steps, timed and one profiled.
-    Returns the launch counts of the AdamW steps. ``cfg``, ``batch`` and
-    ``seq`` cut it to size for a rehearsal on the CPU."""
+    trip and a resumed step, then bfloat16: gradients through the kernels
+    against the plain-attention oracle, then steps (the second counted
+    path: the bf16 bodies of the kernels), timed, and one profiled.
+    Returns the launch counts of the float32 AdamW steps and of the timed
+    bfloat16 steps. ``cfg``, ``batch`` and ``seq`` cut it to size for a
+    rehearsal on the CPU."""
     import dataclasses
     import shutil
 
@@ -1363,7 +1426,6 @@ def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import token_batches
-    from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.training import (AdamWConfig, init_opt_state,
                                       make_train_step, restore_checkpoint,
@@ -1394,12 +1456,8 @@ def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
         torch.cuda.synchronize()
         return float(loss), g, time.perf_counter() - t
     loss_k, g_k, s_k = grads(False)
-    saved = ops.attention
-    ops.attention = plain_attention
-    try:
+    with oracle_attention():
         loss_o, g_o, s_o = grads(False)
-    finally:
-        ops.attention = saved
     rel, leaf = worst_leaf(g_k, g_o)
     print(f"  fp32 loss through the kernels {loss_k:.6f}, through the plain "
           f"attention {loss_o:.6f} (rel {abs(loss_k - loss_o) / loss_o:.2e}"
@@ -1498,27 +1556,43 @@ def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
     del restored, opt, p1, p2
     free_device()
 
-    # 6. bfloat16 steps (bf16 params, fp32 moments), timed and profiled
+    # 6. bfloat16 (bf16 params, fp32 moments): gradients against the
+    # oracle, then steps, timed and profiled
     cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
     params = init_params(cfg16, seed=0, device=device)
+    rel, leaf, loss_k, loss_o = bf16_grads_check(params, cfg16, b0["tokens"],
+                                                 b0["labels"])
+    print(f"  bf16 loss through the kernels {loss_k:.6f}, through the plain "
+          f"attention {loss_o:.6f}; gradients: worst leaf {leaf} rel L2 "
+          f"{rel:.3e} (bound {BF16_GRAD_REL_L2:g})")
+    if not rel <= BF16_GRAD_REL_L2:
+        fail("bf16 training gradients through the kernels disagree with "
+             "the plain attention's")
+    free_device()
     step = make_train_step(cfg16, AdamWConfig(lr=TRAIN_LR))
     opt = init_opt_state(params)
     params, opt, m = step(params, opt, next(data))          # warm-up
     torch.cuda.synchronize()
     losses = []
+    reset_launches()                        # the bf16 path starts here
     t = time.perf_counter()
     for _ in range(BF16_STEPS):
         params, opt, m = step(params, opt, next(data))
         losses.append(m["loss"])
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) / BF16_STEPS
+    launches16 = read_launches()            # ... and ends here
     losses = [float(x) for x in losses]
     print(f"  bf16 steps (remat=True): {wall:.4f} s/step, "
           f"{batch * seq / wall:.1f} tokens/s (host clock over "
           f"{BF16_STEPS} steps, ended by a synchronize); losses "
           f"{[round(x, 4) for x in losses]}")
+    print(f"  kernel launches on the bf16 train path: {launches16}")
     if not np.isfinite(losses).all():
         fail(f"bf16 training losses are not finite: {losses}")
+    want = {n: c // steps * BF16_STEPS for n, c in want.items()}
+    if any(launches16[n] != c for n, c in want.items()):
+        fail(f"bf16 train path launches {launches16}, expected {want}")
     nxt = next(data)
 
     def one_step():
@@ -1530,7 +1604,7 @@ def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> dict:
     profile_run("bf16 profiled train step", one_step)
     del params, opt
     free_device()
-    return launches
+    return [launches, launches16]
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1549,31 +1623,47 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
-def tensor_core_check(log: str) -> None:
-    """The bf16 forward runs on the tensor cores: every instantiation of
-    ``attn_fwd_wgmma`` (hd 32, 64, 128) in the built library must hold
-    HGMMA instructions (``cuobjdump -sass``). Prints each one's count
-    and, from this build's ptxas log, its registers and spills."""
+# source -> the bf16 kernels it must hold, each at hd 32, 64 and 128
+WGMMA_KERNELS = {"flash_attention": ("attn_fwd_wgmma",),
+                 "flash_attention_bwd": ("attn_bwd_dq_wgmma",
+                                         "attn_bwd_dkv_wgmma")}
+
+
+def tensor_core_check(logs: dict) -> None:
+    """The bf16 attention kernels run on the tensor cores: every
+    instantiation (hd 32, 64, 128) of the forward's ``attn_fwd_wgmma`` and
+    the backward's ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkv_wgmma`` in the
+    built libraries must hold HGMMA instructions (``cuobjdump -sass``) and,
+    where this run's ptxas log lists it, spill nothing. Prints each one's
+    count, registers and spills."""
     import shutil
     from repro_torch.kernels import build
-    lib = build._target(build.CSRC / "flash_attention.cu")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
-    wg = {f: n for f, n in counts.items() if "attn_fwd_wgmma" in f}
-    usage = ptxas_usage(log)
-    for f, n in sorted(wg.items()):
-        print(f"  tensor cores: {f}: {n} HGMMA; ptxas "
-              f"{usage.get(f, 'not rebuilt in this run')}")
-    if len(wg) != 3 or not all(wg.values()):
-        fail(f"the bf16 forward kernel has no HGMMA instructions: {wg}")
+    for stem, names in WGMMA_KERNELS.items():
+        lib = build._target(build.CSRC / f"{stem}.cu")
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
+            elif fn is not None and "HGMMA" in line:
+                counts[fn] += 1
+        usage = ptxas_usage(logs.get(stem, ""))
+        for name in names:
+            wg = {f: n for f, n in counts.items() if name in f}
+            for f, n in sorted(wg.items()):
+                u = usage.get(f)
+                print(f"  tensor cores: {f}: {n} HGMMA; ptxas "
+                      f"{u or 'not rebuilt in this run'}")
+                spilled = re.findall(r"(\d+) bytes spill",
+                                     (u or {}).get("spills", ""))
+                if any(int(x) for x in spilled):
+                    fail(f"{f} spills registers: {u}")
+            if len(wg) != 3 or not all(wg.values()):
+                fail(f"the bf16 kernel {name} has no HGMMA instructions: "
+                     f"{wg}")
 
 
 PHASES = ("kernels", "serve", "decode", "hybrid", "ssm", "train")
@@ -1628,7 +1718,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {stem}: {line.strip()}")
-    tensor_core_check(logs.get("flash_attention", ""))
+    tensor_core_check(logs)
 
     # a partial run (``--phases kernels,hybrid``: a first check of a new
     # kernel) checks what it runs and prints no record and no result
@@ -1673,14 +1763,14 @@ def main() -> int:
     if "train" in phases:
         print("== train")
         free_device()
-        runs.append(train_phase(device))
+        runs.extend(train_phase(device))
     if phases != PHASES:
         print(f"== partial run ({', '.join(phases)}) done in "
               f"{time.perf_counter() - t_start:.1f} s: no record")
         return 0
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, hybrid serve, hybrid decode, "
-          f"ssm serve, train): {runs}")
+          f"ssm serve, fp32 train, bf16 train): {runs}")
 
     record = {"kernels": [
         {"name": name, "route": "cuda",

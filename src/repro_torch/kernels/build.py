@@ -3,9 +3,10 @@
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface under ``<repo>/build/kernels/`` on first
 use (one ``nvcc`` per source, all started together), then loaded with
-``ctypes``. A library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale build is never loaded. Nothing is
-built when this module is imported: the CPU never needs the kernels.
+``ctypes``. A library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale build is never loaded. Nothing is built when this
+module is imported: the CPU never needs the kernels.
 """
 from __future__ import annotations
 
@@ -40,8 +41,12 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    """The library built from ``src``: its name hashes the source and
+    every header beside it, so an edited header rebuilds too."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(*, ptxas_verbose: bool = False) -> dict[str, str]:

@@ -12,7 +12,8 @@ TPU kernel of the JAX package:
 The dtype picks the kernel in the source: bfloat16 runs on the tensor
 cores (``wgmma``, operands loaded by TMA), float32 on scalar FMA. A
 bfloat16 tensor that TMA cannot read (a base not 16-byte aligned, or a
-stride that is not a multiple of 16 bytes) raises ``ValueError``.
+stride that is not a positive multiple of 16 bytes) raises
+``ValueError``.
 
 A tensor on the CPU goes to the plain version beside each wrapper
 (:func:`flash_attention_plain`, :func:`flash_attention_lse_plain`); a
@@ -81,6 +82,20 @@ def _fn():
     return fn
 
 
+def tma_unreadable(t: Tensor) -> Optional[str]:
+    """Why TMA cannot load the (B, S, heads, hd) view ``t`` as the bf16
+    kernels do, or None: they need a 16-byte aligned base and every stride
+    of an axis longer than 1 a positive multiple of 16 bytes."""
+    if t.data_ptr() % 16:
+        return "base address is not 16-byte aligned"
+    for ax in range(3):
+        nbytes = t.stride(ax) * t.element_size()
+        if t.shape[ax] > 1 and (nbytes <= 0 or nbytes % 16):
+            return (f"stride along axis {ax} is {nbytes} bytes, not a "
+                    "positive multiple of 16")
+    return None
+
+
 def _check(q: Tensor, k: Tensor, v: Tensor, seg_ids: Optional[Tensor],
            window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -102,20 +117,12 @@ def _check(q: Tensor, k: Tensor, v: Tensor, seg_ids: Optional[Tensor],
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head_dim axis must be contiguous")
-        if q.dtype == torch.bfloat16:
-            # the bf16 kernel loads q, k and v by TMA: a 16-byte aligned
-            # base, and every stride of an axis longer than 1 a multiple
-            # of 16 bytes (o is allocated contiguous here)
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}'s base address is not 16-byte "
-                                 "aligned (the bf16 kernel loads it by TMA)")
-            for ax in range(3):
-                nbytes = t.stride(ax) * t.element_size()
-                if t.shape[ax] > 1 and nbytes % 16:
-                    raise ValueError(
-                        f"{name}'s stride along axis {ax} is {nbytes} bytes,"
-                        " not a multiple of 16 (the bf16 kernel loads it by "
-                        "TMA)")
+        # the bf16 kernel loads q, k and v by TMA (o is allocated
+        # contiguous here)
+        why = tma_unreadable(t) if q.dtype == torch.bfloat16 else None
+        if why is not None:
+            raise ValueError(f"{name}'s {why} (the bf16 kernel loads it by "
+                             "TMA)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if max(B * H, Sq, Sk) >= 2 ** 31 or B * H > 65535:

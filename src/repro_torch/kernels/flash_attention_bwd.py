@@ -12,6 +12,13 @@ The counterpart of the JAX package's ``repro/kernels/flash_attention_bwd.py``:
     ``kernels/flash_attention.py::flash_attention_lse``, the backward
     :func:`flash_attention_bwd`.
 
+The dtype picks the kernels' bodies in the source: bfloat16 runs on the
+tensor cores (``wgmma``, operands loaded by TMA), float32 on scalar FMA.
+A bfloat16 input that TMA cannot read (a base not 16-byte aligned, or a
+stride that is not a positive multiple of 16 bytes) raises
+``ValueError``; :class:`FlashAttention` hands the kernels a packed copy
+of such an incoming gradient.
+
 A tensor on the CPU goes to the plain version,
 :func:`flash_attention_bwd_plain` (the FA-2 formulas written out on full
 tensors); a CUDA tensor launches the kernels or raises. ``LAUNCHES``
@@ -26,7 +33,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _DTYPES, _on_cpu,
-                                                 flash_attention_lse)
+                                                 flash_attention_lse,
+                                                 tma_unreadable)
 from repro_torch.kernels.ref import NEG_INF, _acc_dtype, _mask, _positions
 
 Tensor = torch.Tensor
@@ -125,6 +133,12 @@ def _check(q: Tensor, k: Tensor, v: Tensor, lse: Tensor, do: Tensor,
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head_dim axis must be contiguous")
+        # the bf16 bodies load q, k, v and dO by TMA and read o with
+        # 16-byte loads
+        why = tma_unreadable(t) if q.dtype == torch.bfloat16 else None
+        if why is not None:
+            raise ValueError(f"{name}'s {why} (the bf16 kernels load it by "
+                             "TMA)")
     for name in ("do", *more):
         if named[name].shape != q.shape:
             raise ValueError(f"{name} {tuple(named[name].shape)} != q "
@@ -236,9 +250,11 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         # autograd may hand over an expanded (stride 0) or strided view;
-        # the kernels read strided rows but need a contiguous last axis
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        # the kernels read strided rows but need a contiguous last axis,
+        # and the bf16 bodies a view TMA can load: else a packed copy
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16 and
+                                  tma_unreadable(do) is not None):
+            do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.kw)
         return dq, dk, dv, None, None, None
 

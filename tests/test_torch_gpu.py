@@ -413,16 +413,19 @@ def test_hybrid_serving_on_the_card_runs_the_scan_kernel(cuda):
 
 # ------------------------------------------------------ attention backward
 
-# the unsegmented CASES and the training main path
-BWD_CASES = [c[:8] for c in CASES if c[8] is None] + [
-    (2, 512, 512, 16, 8, 128, True, 0)]
+# the unsegmented CASES (among them hymba's GQA 5 with window 1024 at
+# S = 1100, and q, k and v as fused-QKV slices) and the training main
+# path: B, Sq, Sk, H, KV, hd, causal, window, fused qkv
+BWD_CASES = [c[:8] + c[9:] for c in CASES if c[8] is None] + [
+    (2, 512, 512, 16, 8, 128, True, 0, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_backward_kernels_match_plain_version(cuda, dtype, case):
-    B, Sq, Sk, H, KV, hd, causal, window = case
-    q, k, v, _ = _inputs(cuda, dtype, B, Sq, Sk, H, KV, hd)
+    """float32 on the scalar bodies, bfloat16 on the wgmma bodies."""
+    B, Sq, Sk, H, KV, hd, causal, window, fused = case
+    q, k, v, _ = _inputs(cuda, dtype, B, Sq, Sk, H, KV, hd, fused=fused)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)) \
         .to(device=cuda, dtype=dtype)
     kw = dict(causal=causal, window=window)
@@ -449,6 +452,80 @@ def test_backward_counts_launches_and_takes_a_strided_gradient(cuda):
     for g, w in zip((q.grad, k.grad, v.grad), want):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-3)
     assert fab.LAUNCHES == {n: c + 1 for n, c in before.items()}
+
+
+@pytest.mark.parametrize("reduce", ["all", "over B, S and heads"])
+def test_bf16_backward_takes_an_expanded_gradient(cuda, reduce):
+    """The trainable attention in bf16 takes autograd's stride-0 dO: of
+    ``o.sum()`` (every stride 0) and of ``(o.sum((0, 1, 2)) * w).sum()``
+    (a contiguous head_dim axis, the rest stride 0, which TMA cannot
+    read): the kernels get a packed copy, launch once each, and match
+    the plain backward on the materialised dO."""
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, 2, 150, 150, 8, 2, 64)
+    w = torch.randn(64, generator=torch.Generator().manual_seed(2)).to(
+        device=cuda, dtype=torch.bfloat16)
+    before = dict(fab.LAUNCHES)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    o = fab.flash_attention_trainable(q, k, v)
+    if reduce == "all":
+        o.sum().backward()
+        do = torch.ones_like(o)
+    else:
+        (o.sum((0, 1, 2)) * w).sum().backward()
+        do = w.expand(o.shape).contiguous()
+    assert fab.LAUNCHES == {n: c + 1 for n, c in before.items()}
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    o2, lse = fa.flash_attention_lse_plain(qd, kd, vd)
+    want = fab.flash_attention_bwd_plain(qd, kd, vd, o2, lse, do)
+    atol, rtol = TOL[torch.bfloat16]
+    for g, ref in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(g.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_are_deterministic(cuda, dtype):
+    """Each output element has one owner (no atomics): two launches of
+    each kernel on the same inputs give bit-identical dq, D, dk and dv."""
+    q, k, v, _ = _inputs(cuda, dtype, 2, 300, 300, 8, 2, 128)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)) \
+        .to(device=cuda, dtype=dtype)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    dq1, d1 = fab.launch_dq(q, k, v, o, lse, do)
+    dq2, d2 = fab.launch_dq(q, k, v, o, lse, do)
+    dk1, dv1 = fab.launch_dkv(q, k, v, lse, do, d1)
+    dk2, dv2 = fab.launch_dkv(q, k, v, lse, do, d2)
+    torch.cuda.synchronize()
+    for a, b in ((dq1, dq2), (d1, d2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
+
+
+def test_backward_launches_refuse_bf16_views_tma_cannot_read(cuda):
+    """launch_dq and launch_dkv raise on a bf16 q or dO whose base is off
+    16 bytes, before any launch; the same views in float32 run on the
+    scalar bodies and match the plain backward."""
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = torch.randn(1, 80, 4 * 32 + 1,
+                          generator=torch.Generator().manual_seed(0))
+        q = buf.to(device=cuda, dtype=dtype)[:, :, 1:].unflatten(2, (4, 32))
+        k, v = (torch.randn(1, 80, 2, 32, generator=torch.Generator()
+                            .manual_seed(s)).to(device=cuda, dtype=dtype)
+                for s in (1, 2))
+        do = torch.flip(q, (1,))
+        o, lse = fa.flash_attention_lse_plain(q, k, v)
+        before = dict(fab.LAUNCHES)
+        if dtype == torch.bfloat16:
+            dvec = torch.zeros_like(lse)
+            with pytest.raises(ValueError, match="TMA"):
+                fab.launch_dq(q, k, v, o, lse, q.contiguous())
+            with pytest.raises(ValueError, match="TMA"):
+                fab.launch_dkv(q.contiguous(), k, v, lse, q, dvec)
+            assert fab.LAUNCHES == before
+        else:
+            got = fab.flash_attention_bwd(q, k, v, o, lse, do)
+            want = fab.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-3)
 
 
 def test_train_step_on_the_card_runs_the_backward_kernels(cuda):

@@ -235,6 +235,9 @@ def _bad_inputs():
             torch.zeros(1, 8, 4 * 32 + 4, dtype=torch.bfloat16)[:, :, :128]
             .unflatten(2, (4, 32)), k.bfloat16(), k.bfloat16(), None, 0,
             ValueError),
+        "bf16 expanded (stride 0) along S": (
+            torch.zeros(1, 1, 4, 32, dtype=torch.bfloat16).expand(1, 8, 4, 32),
+            k.bfloat16(), k.bfloat16(), None, 0, ValueError),
     }
 
 
@@ -273,3 +276,29 @@ def test_tma_checks_apply_to_bf16_only():
     tfa._check(q, k, k, None, 0)
     with pytest.raises(ValueError, match="TMA"):
         tfa._check(view(torch.bfloat16), k.bfloat16(), k.bfloat16(), None, 0)
+
+
+# ------------------------------------------------------------ the build
+
+def test_kernel_library_name_hashes_the_shared_headers(tmp_path,
+                                                       monkeypatch):
+    """A library's file name hashes its source and every csrc/*.cuh, so
+    an edited header (hopper.cuh, shared by the attention kernels) is
+    rebuilt rather than a stale library loaded. No nvcc needed."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    src, header = csrc / "k.cu", csrc / "hopper.cuh"
+    src.write_text('#include "hopper.cuh"\n')
+    header.write_text("// v1\n")
+    first = build._target(src)
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    assert build._target(src) == first
+    header.write_text("// v2\n")
+    second = build._target(src)
+    assert second != first
+    (csrc / "other.cuh").write_text("// new\n")
+    assert build._target(src) not in (first, second)
+    src.write_text('#include "hopper.cuh"\n// edited\n')
+    assert build._target(src) not in (first, second)

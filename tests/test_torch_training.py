@@ -44,6 +44,7 @@ from repro.training import restore_checkpoint as j_restore
 from repro.training import save_checkpoint as j_save
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import token_batches
+from repro_torch.kernels import flash_attention_bwd as fab
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.flash_attention import flash_attention_lse_plain
 from repro_torch.kernels.flash_attention_bwd import (FlashAttention,
@@ -183,6 +184,73 @@ def test_plain_backward_zeroes_rows_with_no_valid_kv():
     do2[:, 5:] = 0
     _, dk2, dv2 = flash_attention_bwd_plain(q, k, v, o, lse, do2, **kw)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def _unreadable_views(dtype):
+    """(B=1, S=8, H=4, hd=32) views TMA cannot load in bf16: a base off
+    16 bytes, a sequence stride off 16 bytes, an expanded (stride 0)
+    sequence axis."""
+    return {
+        "base": torch.zeros(1, 8, 4 * 32 + 1, dtype=dtype)[:, :, 1:]
+        .unflatten(2, (4, 32)),
+        "seq stride": torch.zeros(1, 8, 4 * 32 + 4, dtype=dtype)[:, :, :128]
+        .unflatten(2, (4, 32)),
+        "expanded": torch.zeros(1, 1, 4, 32, dtype=dtype).expand(1, 8, 4, 32),
+    }
+
+
+@pytest.mark.parametrize("which", ["base", "seq stride", "expanded"])
+@pytest.mark.parametrize("role", ["q", "do", "o"])
+def test_backward_tma_checks_apply_to_bf16_only(which, role):
+    """The twin of test_tma_checks_apply_to_bf16_only for the backward:
+    the bf16 bodies load q, k, v and dO by TMA (and read o with 16-byte
+    loads), so a view they cannot read raises before any launch; the
+    fp32 bodies read through plain loads and accept it."""
+    for dtype in (torch.float32, torch.bfloat16):
+        t = {n: torch.zeros(1, 8, 4, 32, dtype=dtype)
+             for n in ("q", "do", "o")}
+        t[role] = _unreadable_views(dtype)[which]
+        k = torch.zeros(1, 8, 2, 32, dtype=dtype)
+        lse = torch.zeros(1, 4, 8)
+        if dtype == torch.float32:
+            fab._check(t["q"], k, k, lse, t["do"], 0, o=t["o"])
+        else:
+            with pytest.raises(ValueError, match="TMA"):
+                fab._check(t["q"], k, k, lse, t["do"], 0, o=t["o"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_packs_an_incoming_gradient_the_kernels_cannot_read(
+        dtype, monkeypatch):
+    """FlashAttention.backward hands the kernels autograd's dO as it is
+    where they can read it, and a packed copy where they cannot: a
+    stride-0 view (the gradient of ``(o.sum((0, 1, 2)) * w).sum()``, w
+    expanded over B, S and heads) is read by the fp32 bodies as it is,
+    but not by TMA in bf16."""
+    seen = []
+
+    def spy(q, k, v, o, lse, do, **kw):
+        seen.append(do)
+        return flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    monkeypatch.setattr(fab, "flash_attention_bwd", spy)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 8, 4, 32, generator=g).to(dtype).requires_grad_(True)
+    k, v = (torch.randn(1, 8, 2, 32, generator=g).to(dtype)
+            .requires_grad_(True) for _ in range(2))
+    w = torch.randn(32, generator=g).to(dtype)
+    (fab.flash_attention_trainable(q, k, v).sum((0, 1, 2)) * w).sum() \
+        .backward()
+    (do,) = seen
+    assert torch.equal(do, w.expand(1, 8, 4, 32))
+    if dtype == torch.bfloat16:
+        assert do.is_contiguous() and fab.tma_unreadable(do) is None
+    else:
+        assert do.stride()[1:3] == (0, 0)
+    o, lse = flash_attention_lse_plain(q.detach(), k.detach(), v.detach())
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o,
+                                     lse, w.expand(1, 8, 4, 32))
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, ref)
 
 
 def test_ops_attention_is_differentiable_and_matches_jax():
