@@ -7,31 +7,38 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 
 1. device  — the card's name, count and power limit; builds the CUDA
    kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
-   source, all started together, with ``-Xptxas -v``); fails unless
-   every head-dim instantiation of the bf16 attention kernels (the
-   forward, and the backward's dq and dkv) holds ``HGMMA`` (tensor-core)
-   instructions (``cuobjdump -sass``) and spills no register, and prints
-   their count, registers and spills.
-2. kernels — each kernel wrapper on the card against its plain PyTorch
-   version on the same inputs: main-path shapes and edge shapes (prime
-   S, sliding window, non-causal, GQA groups 1, 4 and 5, head_dim
-   128/64/32, segments starting mid-tile, segment ids out of order and
-   recurring, S = 64k + 1, a window crossed with a ragged last tile, q,
-   k and v as slices of one fused QKV buffer; for the decode kernel
-   ragged Sk, a ring-buffer kv_pos with -1 holes, windows; for the two
-   recurrent scans T = 1, a prime T, a T that is not a multiple of 32, a
-   nonzero input state and decays far past the clamp, outputs and final
-   states; for
-   the two backward kernels dq, dk and dv on the same (q, k, v, o, lse,
-   dO): the training shape, the JAX backward test's shapes with windows
-   0 and 40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal, rows
-   that see no kv, hymba's GQA 5 with window 1024 at S = 1100, fused-QKV
-   slices), in float32 (scalar bodies) and bfloat16 (wgmma bodies); then
-   times the kernel, the
-   plain version and a PyTorch library call (where one exists) at the
-   main-path shapes with CUDA events (the library's attention backward
-   under the profiler), and the forward with logsumexp also at hymba's
-   serving shape and a decode admission's, beside SDPA.
+   source, all started together, with ``-Xptxas -v``).
+2. kernels — fails unless every head-dim instantiation of the bf16
+   attention kernels (the forward, and the backward's dq and dkv) holds
+   ``HGMMA`` (tensor-core) instructions (``cuobjdump -sass``) and every
+   bf16 instantiation of the SSM scan's two kernels ``HMMA`` or
+   ``HGMMA``, none of them spills a register, nor does any decode or
+   scan kernel (their count, registers and spills are printed); then
+   each kernel wrapper on the card against its plain PyTorch version on
+   the same inputs: main-path shapes and edge shapes (prime S, sliding
+   window, non-causal, GQA groups 1, 4 and 5, head_dim 128/64/32,
+   segments starting mid-tile, segment ids out of order and recurring,
+   S = 64k + 1, a window crossed with a ragged last tile, q, k and v as
+   slices of one fused QKV buffer; for the decode kernel ragged Sk, a
+   ring-buffer kv_pos with -1 holes, windows, hymba's GQA 5 at hd 64
+   with its window crossed; for the two recurrent scans T = 1, a prime
+   T, a T that is not a multiple of 32, a nonzero input state and decays
+   far past the clamp (in one chunk, and for the SSM scan over four
+   64-step chunks with a ragged tail), outputs and final states; for the
+   two backward kernels dq, dk and dv on the same (q, k, v, o, lse, dO):
+   the training shape, the JAX backward test's shapes with windows 0 and
+   40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal, rows that see
+   no kv, hymba's GQA 5 with window 1024 at S = 1100, fused-QKV slices),
+   in float32 (scalar bodies) and bfloat16 (tensor-core bodies).
+   timing  — the kernel, its plain version and a PyTorch library call
+   (where one exists) at the main-path shapes with CUDA events (the
+   library's attention backward under the profiler), the forward with
+   logsumexp also at hymba's serving shape and a decode admission's,
+   beside SDPA, the decode kernel also at hymba's decode shape, the SSM
+   scan also at T = 2048, and each call of the decode kernel and the two
+   scans split by kernel under the profiler (the device's gap or overlap
+   between launches). It checks nothing of the kernels, so it also
+   times an older tree's kernels with this script copied beside them.
 3. serve   — full-width qwen3-1.7b (all 28 layers, random weights from a
    seeded generator on the card) through ``GraftPlanner.plan`` and
    ``GraftExecutor.serve`` over an ``InProcessTransport``, then
@@ -277,7 +284,8 @@ def decode_inputs(gen, dtype, device, B, Sk, H, KV, hd, q_pos, ring):
 
 # (label, B, Sk, H, KV, hd, q_pos, ring, window): the shapes of
 # tests/test_kernels.py::test_decode_attention x window {0, 100}, then
-# a ragged Sk, a ring buffer and the main-path shape
+# a ragged Sk, a ring buffer, hymba's GQA 5 at hd 64 with its window
+# crossed and the main-path shape
 DECODE_MAIN = ("main path", 4, 512, 16, 8, 128, [511, 511, 511, 511],
                False, 0)
 DECODE_CASES = [
@@ -291,6 +299,8 @@ DECODE_CASES = [
     ("ring, window 40", 3, 96, 16, 8, 128, [300, 95, 40], True, 40),
     ("main path, mixed positions", 4, 512, 16, 8, 128, [511, 300, 64, 5],
      False, 0),
+    ("hymba GQA 5, hd 64, window 1024 crossed, ragged Sk", 3, 1100, 25, 5,
+     64, [1099, 700, 30], False, 1024),
     DECODE_MAIN,
 ]
 
@@ -418,8 +428,11 @@ def wkv_inputs(gen, dtype, device, B, T, H, hd, w):
 
 # (label, B, T, H, hd, N, dt scale): the hymba main path, the shapes of
 # tests/test_kernels.py::test_ssm_scan, T = 1, a prime T, a T that is
-# not a multiple of 32, and dt * A far below the -2.5 clamp; every case
-# starts from a nonzero state
+# not a multiple of 32, and dt * A far below the -2.5 clamp, in one chunk
+# and across several 64-step chunks with a ragged tail (where a divided
+# cumulative decay would be 0 / 0), then the widest state the kernel
+# takes, a head dim it pads, and B and C too narrow for 16-byte reads;
+# every case starts from a nonzero state
 SSM_MAIN = ("main path", 1, 512, 50, 64, 16, 0.2)
 SSM_CASES = [
     SSM_MAIN,
@@ -430,6 +443,10 @@ SSM_CASES = [
     ("prime T", 2, 37, 4, 64, 16, 0.2),
     ("T = 100", 1, 100, 8, 64, 16, 0.2),
     ("extreme decay", 1, 64, 2, 16, 8, 50.0),
+    ("extreme decay, 4 chunks, ragged tail", 1, 200, 4, 64, 16, 50.0),
+    ("widest state, 128 x 32", 1, 130, 2, 128, 32, 0.2),
+    ("hd 24, padded to 32", 2, 70, 3, 24, 16, 0.2),
+    ("hd 8, N 4", 1, 50, 2, 8, 4, 0.2),
 ]
 # (label, B, T, H, hd, w): the rwkv6 main path, the shapes of
 # tests/test_kernels.py::test_wkv6, the same ragged lengths, and
@@ -634,78 +651,166 @@ def time_forward(device, gen, case, name, *, with_plain) -> dict:
     return r
 
 
+def kernel_split(fn, calls: int = 20) -> dict:
+    """Where one call of ``fn`` spends its device time: each kernel's mean
+    device ms by name, and the span from the call's first kernel start to
+    its last kernel end, under ``torch.profiler`` over ``calls`` calls
+    (after 3 warm-ups). Each call is queued behind a device sleep, so its
+    kernels are all enqueued before the first one starts (the profiler
+    slows enqueueing), and ended by a synchronize, so no call overlaps
+    another. Span minus the kernels' sum is the device's idle gap between
+    a call's launches; a negative gap is overlap (a kernel launched with
+    programmatic dependent launch starts before the one it follows
+    ends)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            torch.cuda._sleep(SLEEP_CYCLES // 50)
+            fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    # one group of kernels per call, each after its sleep (PyTorch's
+    # spin_kernel, ~1 ms, longer than any kernel split here); a call whose
+    # group the profiler recorded incompletely is left out
+    groups: list = []
+    for e in evs:
+        if "spin_kernel" in e.name or \
+                e.time_range.end - e.time_range.start > 500:
+            groups.append([])
+        elif groups:
+            groups[-1].append(e)
+    k = max((len(g) for g in groups), default=0)
+    groups = [g for g in groups if len(g) == k]
+    if k == 0 or len(groups) < calls // 2:
+        fail(f"kernel_split: {len(evs)} device events over {calls} calls, "
+             f"{len(groups)} complete")
+    calls = len(groups)
+    by_name: dict = {}
+    span = 0.0
+    for call in groups:
+        span += call[-1].time_range.end - call[0].time_range.start
+        for e in call:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "",
+                          e.name).split("<")[0].split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + \
+                (e.time_range.end - e.time_range.start)
+    kernels = {n: us / calls / 1e3 for n, us in by_name.items()}
+    span_ms = span / calls / 1e3
+    return {"kernels": kernels, "span_ms": span_ms,
+            "gap_ms": span_ms - sum(kernels.values()),
+            "launches_per_call": k, "calls": calls}
+
+
+def split_text(split) -> str:
+    parts = ", ".join(f"{n} {ms:.4f} ms" for n, ms in split["kernels"].items())
+    gap = split["gap_ms"]
+    return (f"{split['launches_per_call']} launch(es) per call: {parts}; "
+            f"span {split['span_ms']:.4f} ms, "
+            f"{'idle gap' if gap >= 0 else 'overlap'} {abs(gap):.4f} ms "
+            f"(profiled, mean of {split['calls']} calls)")
+
+
+# (label, B, Sk, H, KV, hd, q_pos, window): row 3's timed shapes, every
+# slot valid: qwen3's decode step (the record's row) and hymba's
+DECODE_TIMED = [("qwen3 decode", 4, 512, 16, 8, 128, [511] * 4, 0),
+                ("hymba decode", 4, 512, 25, 5, 64, [511] * 4, 1024)]
+
+
 def time_decode(device, gen) -> dict:
-    """Row 3 at the main-path shape (B=4, Sk=512, H=16, KV=8, hd=128,
-    bf16, every slot valid), L2 cold: 8 copies of the inputs (67 MB of
-    k/v) in turn. Library yardstick: SDPA with a (B, H, 1, Sk) boolean
-    mask built from kv_pos/q_pos."""
+    """Row 3 at each ``DECODE_TIMED`` shape (bf16), L2 cold: 8 copies of
+    the inputs (67 MB of k/v at qwen3's shape) in turn, as a decode step
+    finds each layer's cache. Library yardstick: SDPA with a (B, H, 1,
+    Sk) boolean mask built from kv_pos/q_pos. Also splits one call's
+    device time by kernel (``kernel_split``). Returns the qwen3 row;
+    the others are printed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels.ref import _mask
 
-    _, B, Sk, H, KV, hd, q_pos, ring, window = DECODE_MAIN
-    copies = [decode_inputs(gen, torch.bfloat16, device, B, Sk, H, KV, hd,
-                            q_pos, ring) for _ in range(8)]
-    q, k, v, qp, kp = copies[0]
-    mask = _mask(qp[:, None], kp, causal=True, window=window)    # (B,1,Sk)
-    pairs = int(mask.sum().item()) * H
-    # q, k, v, o in bf16, q_pos and kv_pos int32, each once
-    nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + qp.numel() * 4 \
-        + kp.numel() * 4
-    flops = 4.0 * hd * pairs              # QK^T and PV per valid pair
-    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
-    lib = [(c[0].transpose(1, 2), c[1].transpose(1, 2),
-            c[2].transpose(1, 2),
-            _mask(c[3][:, None], c[4], causal=True,
-                  window=window)[:, None].expand(B, H, 1, Sk))
-           for c in copies]
-    ms, host_ms = time_ms(rotating(lambda *a: da.decode_attention(*a),
-                                   copies))
-    r = {"ms": ms, "host_ms": host_ms,
-         "plain_ms": time_ms(rotating(
-             lambda *a: da.decode_attention_plain(*a), copies))[0],
-         "library_ms": time_ms(rotating(
-             lambda qt, kt, vt, m: F.scaled_dot_product_attention(
-                 qt, kt, vt, attn_mask=m, enable_gqa=True), lib))[0],
-         "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
-         "valid_pairs": pairs, "shape": (B, Sk, H, KV, hd)}
-    print(f"  decode_attention bf16 {r['shape']}: kernel {r['ms']:.4f} ms "
-          f"(host {host_ms:.4f} ms per call), "
-          f"plain {r['plain_ms']:.4f} ms, library (SDPA, boolean mask) "
-          f"{r['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}: {nbytes} B, "
-          f"{flops:.3e} FLOP over {pairs} valid (head, slot) pairs; L2 "
-          "cold: 8 input copies in turn); device times")
-    return r
+    out = {}
+    for label, B, Sk, H, KV, hd, q_pos, window in DECODE_TIMED:
+        copies = [decode_inputs(gen, torch.bfloat16, device, B, Sk, H, KV,
+                                hd, q_pos, False) for _ in range(8)]
+        q, k, v, qp, kp = copies[0]
+        mask = _mask(qp[:, None], kp, causal=True, window=window)
+        pairs = int(mask.sum().item()) * H
+        # q, k, v, o in bf16, q_pos and kv_pos int32, each once
+        nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + qp.numel() * 4 \
+            + kp.numel() * 4
+        flops = 4.0 * hd * pairs              # QK^T and PV per valid pair
+        bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+        lib = [(c[0].transpose(1, 2), c[1].transpose(1, 2),
+                c[2].transpose(1, 2),
+                _mask(c[3][:, None], c[4], causal=True,
+                      window=window)[:, None].expand(B, H, 1, Sk))
+               for c in copies]
+        run = rotating(lambda *a: da.decode_attention(*a, window=window),
+                       copies)
+        ms, host_ms = time_ms(run)
+        r = {"ms": ms, "host_ms": host_ms,
+             "plain_ms": time_ms(rotating(
+                 lambda *a: da.decode_attention_plain(*a, window=window),
+                 copies))[0],
+             "library_ms": time_ms(rotating(
+                 lambda qt, kt, vt, m: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=m, enable_gqa=True), lib))[0],
+             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+             "flops": flops, "valid_pairs": pairs,
+             "shape": (B, Sk, H, KV, hd), "split": kernel_split(run)}
+        print(f"  decode_attention bf16 {label} {r['shape']} window "
+              f"{window}: kernel {ms:.4f} ms (host {host_ms:.4f} ms per "
+              f"call), plain {r['plain_ms']:.4f} ms, library (SDPA, boolean "
+              f"mask) {r['library_ms']:.4f} ms, {ms / r['library_ms']:.2f}x "
+              f"SDPA; bound {bms:.4f} ms ({by}: {nbytes} B, {flops:.3e} FLOP "
+              f"over {pairs} valid (head, slot) pairs), {100 * bms / ms:.1f}%"
+              " of it; L2 cold: 8 input copies in turn; device times")
+        print(f"    {split_text(r['split'])}")
+        out[label] = r
+    return out["qwen3 decode"]
+
+
+# T of row 6's timed calls: the hymba main path (the record's row) and
+# the longest of hymba's serving buckets
+SSM_TIMED_T = (512, 2048)
 
 
 def time_scans(device, gen) -> dict:
-    """Rows 6 and 7 at their main-path shapes (bf16, as served), L2 warm
-    as for kernels fed by the projections just before them. Bound: the
-    bytes (each input once, the output and the final state once) against
-    the FLOPs of the chunked matmul form the TPU kernels run (chunk 32),
-    at the bf16 tensor-core peak. The plain versions' device time is
-    their kernels' sum under the profiler (``profiled_device_ms``). No
-    single PyTorch call computes either scan, so there is no library
-    time."""
+    """Rows 6 and 7 at their main-path shapes (bf16, as served), row 6
+    also at T = 2048, L2 warm as for kernels fed by the projections just
+    before them. Bound: the bytes (each input once, the output and the
+    final state once) against the FLOPs of the chunked matmul form the
+    TPU kernels run (chunk 32), at the bf16 tensor-core peak. The plain
+    versions' device time is their kernels' sum under the profiler
+    (``profiled_device_ms``). No single PyTorch call computes either
+    scan, so there is no library time."""
     import torch
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
     from repro_torch.kernels.ref import pick_block
 
     out = {}
-    _, B, T, H, hd, N, dts = SSM_MAIN
-    args = ssm_inputs(gen, torch.bfloat16, device, B, T, H, hd, N, dts)
-    C = pick_block(T, 32)
-    n_chunk = -(-T // C)
-    # x and y bf16, dt fp32, A fp32, Bm and Cm bf16, state in and out fp32
-    nbytes = 2 * (2 * B * T * H * hd) + 4 * B * T * H + 4 * H \
-        + 2 * (2 * B * T * N) + 2 * (4 * B * H * hd * N)
-    # per (row, head, chunk): C h0, C B^T, scores x, and the state update
-    flops = 2.0 * B * H * n_chunk * C * (2 * N * hd + C * (N + hd))
-    out["ssm_scan"] = dict(shape=(B, T, H, hd, N), bytes=nbytes,
-                           flops=flops, run=lambda: ss.ssm_scan(*args),
-                           plain=lambda: ss.ssm_scan_plain(*args))
+    _, B, _, H, hd, N, dts = SSM_MAIN
+    for T in SSM_TIMED_T:
+        args = ssm_inputs(gen, torch.bfloat16, device, B, T, H, hd, N, dts)
+        C = pick_block(T, 32)
+        n_chunk = -(-T // C)
+        # x and y bf16, dt fp32, A fp32, Bm and Cm bf16, state in and out
+        # fp32
+        nbytes = 2 * (2 * B * T * H * hd) + 4 * B * T * H + 4 * H \
+            + 2 * (2 * B * T * N) + 2 * (4 * B * H * hd * N)
+        # per (row, head, chunk): C h0, C B^T, scores x, and the update
+        flops = 2.0 * B * H * n_chunk * C * (2 * N * hd + C * (N + hd))
+        name = "ssm_scan" if T == SSM_MAIN[2] else f"ssm_scan T={T}"
+        out[name] = dict(shape=(B, T, H, hd, N), bytes=nbytes, flops=flops,
+                         run=lambda a=args: ss.ssm_scan(*a),
+                         plain=lambda a=args: ss.ssm_scan_plain(*a))
     _, B, T, H, hd, w = WKV_MAIN
     wargs = wkv_inputs(gen, torch.bfloat16, device, B, T, H, hd, w)
     C = pick_block(T, 32)
@@ -721,14 +826,18 @@ def time_scans(device, gen) -> dict:
     for name, r in out.items():
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
                                              H100_BF16_FLOPS)
-        r["ms"], r["host_ms"] = time_ms(r.pop("run"))
+        run = r.pop("run")
+        r["ms"], r["host_ms"] = time_ms(run)
         r["plain_ms"] = profiled_device_ms(r.pop("plain"))
         r["library_ms"] = None
+        r["split"] = kernel_split(run)
         print(f"  {name} bf16 {r['shape']}: kernel {r['ms']:.4f} ms (host "
               f"{r['host_ms']:.4f} ms per call), plain {r['plain_ms']:.4f} "
               f"ms (profiled), library none, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {r['bytes']} B, {r['flops']:.3e} FLOP of "
-              "the chunked form); device times")
+              f"the chunked form), {100 * r['bound_ms'] / r['ms']:.1f}% of "
+              "it; device times")
+        print(f"    {split_text(r['split'])}")
     return out
 
 
@@ -853,9 +962,8 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 
 # substrings of the port's attention and scan kernels (csrc/*.cu)
-ATTENTION_NAMES = ("attn_fwd_", "attn_bwd_", "decode_attn_kernel",
-                   "decode_combine_kernel")
-SCAN_NAMES = ("ssm_scan_kernel", "wkv6_scan_kernel")
+ATTENTION_NAMES = ("attn_fwd_", "attn_bwd_", "decode_attn_kernel")
+SCAN_NAMES = ("ssm_chunk_", "wkv6_scan_kernel")
 
 
 def launch_counters() -> list:
@@ -1623,23 +1731,41 @@ def ptxas_usage(log: str) -> dict:
     return out
 
 
-# source -> the bf16 kernels it must hold, each at hd 32, 64 and 128
-WGMMA_KERNELS = {"flash_attention": ("attn_fwd_wgmma",),
-                 "flash_attention_bwd": ("attn_bwd_dq_wgmma",
-                                         "attn_bwd_dkv_wgmma")}
+# source -> (the bf16 kernels it must hold, a substring of the mangled
+# name of each bf16 instantiation, how many instantiations each has, the
+# tensor-core instructions that count): the attention kernels at hd 32,
+# 64 and 128 on wgmma; the SSM scan's two kernels at hd up to 16, 32, 64
+# and 128 times N up to 16 and 32 on mma.sync
+TENSOR_CORE_KERNELS = {
+    "flash_attention": (("attn_fwd_wgmma",), "", 3, ("HGMMA",)),
+    "flash_attention_bwd": (("attn_bwd_dq_wgmma", "attn_bwd_dkv_wgmma"), "",
+                            3, ("HGMMA",)),
+    "ssm_scan": (("ssm_chunk_state_kernel", "ssm_chunk_out_kernel"),
+                 "bfloat16", 8, ("HMMA", "HGMMA")),
+}
+# sources none of whose kernels may spill (every instantiation, both
+# dtypes), besides the tensor-core kernels above
+NO_SPILL = ("decode_attention", "ssm_scan")
+
+
+def spilled(usage) -> bool:
+    return any(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                          (usage or {}).get("spills", "")))
 
 
 def tensor_core_check(logs: dict) -> None:
-    """The bf16 attention kernels run on the tensor cores: every
-    instantiation (hd 32, 64, 128) of the forward's ``attn_fwd_wgmma`` and
-    the backward's ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkv_wgmma`` in the
-    built libraries must hold HGMMA instructions (``cuobjdump -sass``) and,
-    where this run's ptxas log lists it, spill nothing. Prints each one's
-    count, registers and spills."""
+    """The bf16 attention kernels and SSM scan run on the tensor cores:
+    every bf16 instantiation of the forward's ``attn_fwd_wgmma``, the
+    backward's ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkv_wgmma`` (HGMMA)
+    and the scan's ``ssm_chunk_state_kernel`` and ``ssm_chunk_out_kernel``
+    (HMMA or HGMMA) in the built libraries must hold such instructions
+    (``cuobjdump -sass``) and, where this run's ptxas log lists it, spill
+    nothing; nor may any kernel of ``NO_SPILL``. Prints each one's count,
+    registers and spills."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for stem, names in WGMMA_KERNELS.items():
+    for stem, (names, sub, count, instrs) in TENSOR_CORE_KERNELS.items():
         lib = build._target(build.CSRC / f"{stem}.cu")
         sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, check=True, timeout=300).stdout
@@ -1648,25 +1774,27 @@ def tensor_core_check(logs: dict) -> None:
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
                 counts[fn] = 0
-            elif fn is not None and "HGMMA" in line:
+            elif fn is not None and any(i in line for i in instrs):
                 counts[fn] += 1
         usage = ptxas_usage(logs.get(stem, ""))
         for name in names:
-            wg = {f: n for f, n in counts.items() if name in f}
-            for f, n in sorted(wg.items()):
+            tc = {f: n for f, n in counts.items() if name in f and sub in f}
+            for f, n in sorted(tc.items()):
                 u = usage.get(f)
-                print(f"  tensor cores: {f}: {n} HGMMA; ptxas "
+                print(f"  tensor cores: {f}: {n} {'/'.join(instrs)}; ptxas "
                       f"{u or 'not rebuilt in this run'}")
-                spilled = re.findall(r"(\d+) bytes spill",
-                                     (u or {}).get("spills", ""))
-                if any(int(x) for x in spilled):
+                if spilled(u):
                     fail(f"{f} spills registers: {u}")
-            if len(wg) != 3 or not all(wg.values()):
-                fail(f"the bf16 kernel {name} has no HGMMA instructions: "
-                     f"{wg}")
+            if len(tc) != count or not all(tc.values()):
+                fail(f"the bf16 kernel {name} has instantiations without "
+                     f"{' or '.join(instrs)} instructions: {tc}")
+    for stem in NO_SPILL:
+        for f, u in ptxas_usage(logs.get(stem, "")).items():
+            if spilled(u):
+                fail(f"{f} spills registers: {u}")
 
 
-PHASES = ("kernels", "serve", "decode", "hybrid", "ssm", "train")
+PHASES = ("kernels", "timing", "serve", "decode", "hybrid", "ssm", "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -1718,7 +1846,6 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"    {stem}: {line.strip()}")
-    tensor_core_check(logs)
 
     # a partial run (``--phases kernels,hybrid``: a first check of a new
     # kernel) checks what it runs and prints no record and no result
@@ -1729,7 +1856,10 @@ def main() -> int:
     runs = []                           # launch counts of each path
     if "kernels" in phases:
         print("== kernels")
+        tensor_core_check(logs)
         worst = kernel_phase(device)
+    if "timing" in phases:
+        print("== timing")
         timing = timing_phase(device)
     if "serve" in phases:
         print("== serve")

@@ -9,11 +9,16 @@ tensor launches the kernel or raises. ``LAUNCHES`` counts wrapper calls
 that launched the kernel, so a run can show its decode path went
 through it.
 
-The wrapper splits the cache into ``SPLIT``-position pieces
+The kernel splits the cache into ``SPLIT``-position pieces
 (flash-decoding): ``ceil(Sk / SPLIT)`` blocks per (kv head, row), each
-writing a partial softmax state to fp32 scratch allocated here, merged
-by a second small kernel. The split count depends on ``Sk`` alone, never
-on the batch, so a row's result does not depend on its batch
+writing a partial softmax state to fp32 scratch; the last block of each
+(row, kv head) to finish merges them in the same launch, counted by an
+int32 ticket. The scratch and the tickets are allocated here once per
+device (:func:`scratch`) and grown when a larger batch, kv head count,
+split count or head dim comes; no call allocates anything else but its
+output. The tickets assume one launch in flight at a time, that is, one
+stream at a time. The split count depends on ``Sk`` alone, never on the
+batch, so a row's result does not depend on its batch
 (``csrc/decode_attention.cu`` says why that matters).
 """
 from __future__ import annotations
@@ -24,7 +29,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _DTYPES,
-                                                 _no_backward, _on_cpu)
+                                                 _no_backward, _on_cpu,
+                                                 grown_scratch, unaligned)
 from repro_torch.kernels.ref import attend_cache_plain
 
 Tensor = torch.Tensor
@@ -45,6 +51,18 @@ def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                            scale: Optional[float] = None) -> Tensor:
     return attend_cache_plain(q, k, v, q_pos, kv_pos, window=window,
                               scale=scale)
+
+
+# device -> (partial sums and (m, l) fp32, tickets int32), grown on demand
+_SCRATCH: dict = {}
+
+
+def scratch(device: torch.device, B: int, KV: int, G: int, hd: int,
+            n_split: int) -> tuple[Tensor, Tensor]:
+    """The device's fp32 partial states (B KV n_split G (hd + 2) values:
+    the splits' sums, then their (m, l) pairs) and its B KV tickets."""
+    return grown_scratch(_SCRATCH, device, B * KV * n_split * G * (hd + 2),
+                         B * KV)
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
@@ -88,14 +106,18 @@ def _check(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor,
                          f"({B}, {Sk}); got {q_pos.dtype} "
                          f"{tuple(q_pos.shape)}, {kv_pos.dtype} "
                          f"{tuple(kv_pos.shape)}")
-    for name, t in (("k", k), ("v", v), ("q_pos", q_pos),
-                    ("kv_pos", kv_pos)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
                     ("kv_pos", kv_pos)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        why = unaligned(t)
+        if why:
+            raise ValueError(f"{name}: {why}; the kernel reads it in "
+                             "16-byte pieces")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     if B > 65535 or KV > 65535 or Sk >= 2 ** 31 or B * H >= 2 ** 31:
@@ -118,17 +140,13 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     n_split = -(-Sk // SPLIT)
     fn = _fn()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    part = (None, None, None)
-    if n_split > 1:
-        f32 = dict(dtype=torch.float32, device=q.device)
-        part = (torch.empty((B, H, n_split), **f32),
-                torch.empty((B, H, n_split), **f32),
-                torch.empty((B, H, n_split, hd), **f32))
+    part, ticket = scratch(q.device, B, KV, H // KV, hd, n_split)
+    ml_ptr = part.data_ptr() + 4 * B * n_split * H * hd   # after the sums
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-                 kv_pos.data_ptr(), o.data_ptr(),
-                 *(t.data_ptr() if t is not None else None for t in part),
+                 kv_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+                 ml_ptr, ticket.data_ptr(),
                  B, Sk, H, KV, hd, n_split,
                  q.stride(0), q.stride(2),
                  k.stride(0), k.stride(1), k.stride(2),

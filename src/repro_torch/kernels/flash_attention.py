@@ -96,6 +96,41 @@ def tma_unreadable(t: Tensor) -> Optional[str]:
     return None
 
 
+def unaligned(t: Tensor) -> Optional[str]:
+    """Why a kernel cannot read the rows of ``t`` (its last axis,
+    contiguous) in 16-byte pieces (``cp.async``, vector loads), or None:
+    that needs a 16-byte aligned base, rows of whole 16-byte units, and
+    the other axes' strides in whole 16-byte units (0 allowed: an
+    expanded axis re-reads the same rows)."""
+    es = t.element_size()
+    if t.data_ptr() % 16:
+        return "base address is not 16-byte aligned"
+    if (t.shape[-1] * es) % 16:
+        return f"rows of {t.shape[-1] * es} bytes, not a multiple of 16"
+    for ax, st in enumerate(t.stride()[:-1]):
+        if (st * es) % 16:
+            return (f"stride along axis {ax} is {st} elements, not a whole "
+                    "number of 16 bytes")
+    return None
+
+
+def grown_scratch(cache: dict, device: torch.device, n_float: int,
+                  n_ticket: int) -> tuple[Tensor, Tensor]:
+    """A kernel's scratch on ``device``, kept in its wrapper's ``cache``:
+    at least ``n_float`` fp32 values and ``n_ticket`` int32 tickets, zero
+    between launches (each launch leaves the tickets it took at zero).
+    Allocated on first use and replaced by a larger one when a call needs
+    more; a replaced buffer is freed in stream order, so a launch still
+    reading it is safe on one stream."""
+    buf, ticket = cache.get(device, (None, None))
+    if buf is None or buf.numel() < n_float:
+        buf = torch.empty(n_float, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
+    cache[device] = (buf, ticket)
+    return buf, ticket
+
+
 def _check(q: Tensor, k: Tensor, v: Tensor, seg_ids: Optional[Tensor],
            window: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:

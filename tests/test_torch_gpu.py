@@ -195,6 +195,7 @@ DECODE_CASES = [  # B, Sk, H, KV, hd, q_pos, ring, window
     (3, 131, 8, 2, 128, [130, 64, 0], False, 0),      # ragged Sk
     (3, 96, 16, 8, 128, [300, 95, 40], True, 0),      # ring, -1 holes
     (4, 512, 16, 8, 128, [511, 300, 64, 5], False, 0),  # main path
+    (3, 1100, 25, 5, 64, [1099, 700, 30], False, 1024),  # hymba GQA 5
 ]
 
 
@@ -220,6 +221,22 @@ def test_decode_kernel_row_does_not_depend_on_batch_or_capacity(cuda):
     alone = da.decode_attention(q[1:2], k[1:2, :301], v[1:2, :301], qp[1:2],
                                 kp[1:2, :301].contiguous())
     assert torch.equal(full[1:2], alone)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_merge_does_not_depend_on_arrival_order(cuda, dtype):
+    """The splits merge in the launch that makes them: whichever block of
+    a (row, kv head) arrives last merges all of them in split order, so
+    20 launches on the same inputs give bit-identical outputs, and every
+    ticket is back at 0 after each."""
+    q, k, v, qp, kp = _decode_case(cuda, dtype, 4, 1100, 25, 5, 64,
+                                   [1099, 700, 300, 30], False)
+    first = da.decode_attention(q, k, v, qp, kp, window=1024)
+    for _ in range(19):
+        assert torch.equal(da.decode_attention(q, k, v, qp, kp, window=1024),
+                           first)
+    _, ticket = da._SCRATCH[q.device]
+    assert not ticket.any()
 
 
 def test_decode_wrapper_counts_launches_and_refuses(cuda):
@@ -303,6 +320,10 @@ SSM_CASES = [  # B, T, H, hd, N, dt scale
     (2, 37, 4, 64, 16, 0.2),            # prime T
     (1, 100, 8, 64, 16, 0.2),           # T not a multiple of 32
     (1, 64, 2, 16, 8, 50.0),            # dt * A far below -2.5
+    (1, 200, 4, 64, 16, 50.0),          # the same over 4 chunks, ragged
+    (1, 130, 2, 128, 32, 0.2),          # the widest state, 128 x 32
+    (2, 70, 3, 24, 16, 0.2),            # hd padded to 32 in the kernel
+    (1, 50, 2, 8, 4, 0.2),              # hd 8, N 4: B and C element-wise
 ]
 WKV_CASES = [  # B, T, H, hd, w (None: random decays)
     (1, 512, 64, 64, None),             # rwkv6 main path
@@ -324,6 +345,29 @@ def test_ssm_kernel_matches_plain_version(cuda, dtype, case):
     assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
     torch.testing.assert_close(y.float(), y2.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(h, h2, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_kernel_row_does_not_depend_on_length_or_batch(cuda, dtype):
+    """Fixed 64-step chunks from t = 0 and fixed summation orders: y[:, :t]
+    is bit-identical for a call of length t and one of length T > t with
+    the same prefix; the state after t steps equals the final state of
+    the length-T call whose steps past t are no-ops (dt = 0: no decay,
+    no update); and a row's y and state are the same alone as in a
+    batch of 3."""
+    x, dt, A, Bm, Cm, h0 = _ssm_case(cuda, dtype, 3, 300, 4, 64, 16)
+    t = 150                             # chunks 0 and 1, then 22 steps
+    y, s = ss.ssm_scan(x, dt, A, Bm, Cm, h0)
+    y_t, s_t = ss.ssm_scan(x[:, :t], dt[:, :t], A, Bm[:, :t], Cm[:, :t], h0)
+    assert torch.equal(y[:, :t], y_t)
+    dt0 = dt.clone()
+    dt0[:, t:] = 0
+    y0, s0 = ss.ssm_scan(x, dt0, A, Bm, Cm, h0)
+    assert torch.equal(y0[:, :t], y_t) and torch.equal(s0, s_t)
+    y1, s1 = ss.ssm_scan(x[1:2], dt[1:2], A, Bm[1:2], Cm[1:2], h0[1:2])
+    assert torch.equal(y1, y[1:2]) and torch.equal(s1, s[1:2])
+    _, ticket = ss._SCRATCH[x.device]
+    assert not ticket.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

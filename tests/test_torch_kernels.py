@@ -17,8 +17,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_attention_bwd import _flash_fwd as j_flash_fwd
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ssm_scan as tss
 from repro_torch.kernels import ref as tref
 
 ATOL, RTOL = 2e-5, 1e-3
@@ -276,6 +278,142 @@ def test_tma_checks_apply_to_bf16_only():
     tfa._check(q, k, k, None, 0)
     with pytest.raises(ValueError, match="TMA"):
         tfa._check(view(torch.bfloat16), k.bfloat16(), k.bfloat16(), None, 0)
+
+
+# ------------------------------------- decode and SSM scan launch checks
+
+def _decode_args(dtype=torch.bfloat16, B=2, Sk=70, H=4, KV=2, hd=64):
+    q = torch.zeros(B, 1, H, hd, dtype=dtype)
+    k = torch.zeros(B, Sk, KV, hd, dtype=dtype)
+    return (q, k, k.clone(), torch.zeros(B, dtype=torch.int32),
+            torch.zeros(B, Sk, dtype=torch.int32))
+
+
+def _decode_bad():
+    """The decode kernel reads q, k and v in 16-byte pieces (cp.async and
+    vector loads): their bases and their B, S and head strides must be
+    whole 16-byte units, in both dtypes."""
+    q, k, v, qp, kp = _decode_args()
+    off = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)[1:].view(k.shape)
+    wide = torch.zeros(2, 70, 2 * 64 + 4, dtype=torch.bfloat16)[:, :, :128] \
+        .unflatten(2, (2, 64))
+    q32, k32, _, _, _ = _decode_args(torch.float32)
+    heads = torch.zeros(2, 70, 2, 66)[..., :64]
+    return {
+        "bf16 k base not 16-byte aligned": (q, off, v, qp, kp),
+        "bf16 k seq stride not whole 16 bytes": (q, wide, v, qp, kp),
+        "bf16 q base not 16-byte aligned": (
+            torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:]
+            .view(q.shape), k, v, qp, kp),
+        "fp32 v head stride not whole 16 bytes": (q32, k32, heads, qp, kp),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_decode_bad()))
+def test_decode_checks_refuse_views_it_cannot_read_in_16_bytes(case):
+    with pytest.raises(ValueError, match="16"):
+        tda._check(*_decode_bad()[case], 0)
+
+
+def test_decode_checks_accept_cache_views():
+    """The layer view of a larger cache (a prefix of its slots), an
+    expanded batch (stride 0) and the main path's layout all pass."""
+    q, k, v, qp, kp = _decode_args(B=4, Sk=512, H=16, KV=8, hd=128)
+    tda._check(q, k, v, qp, kp, 0)
+    big = torch.zeros(4, 600, 8, 128, dtype=torch.bfloat16)
+    tda._check(q, big[:, :512], big[:, :512], qp, kp, 0)
+    one = torch.zeros(1, 512, 8, 128, dtype=torch.bfloat16)
+    tda._check(q, one.expand(4, -1, -1, -1), one.expand(4, -1, -1, -1), qp,
+               kp, 1024)
+    q32, k32, v32, _, _ = _decode_args(torch.float32, B=4, Sk=512, H=16,
+                                       KV=8, hd=128)
+    tda._check(q32, k32, v32, qp, kp, 0)
+
+
+def test_decode_scratch_is_allocated_once_and_grown(monkeypatch):
+    """The partial-state buffer and the tickets are kept per device and
+    replaced only by larger ones; tickets start at zero."""
+    monkeypatch.setattr(tda, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    part, ticket = tda.scratch(cpu, 4, 8, 2, 128, 8)
+    assert part.numel() == 4 * 8 * 8 * 2 * (128 + 2)
+    assert ticket.numel() == 32 and ticket.dtype == torch.int32
+    assert not ticket.any()
+    again = tda.scratch(cpu, 2, 8, 2, 64, 3)      # smaller: the same buffers
+    assert again[0] is part and again[1] is ticket
+    grown = tda.scratch(cpu, 4, 8, 2, 128, 17)    # more splits: a new part
+    assert grown[0].numel() == 4 * 8 * 17 * 2 * 130 and grown[1] is ticket
+    wider = tda.scratch(cpu, 8, 8, 2, 128, 1)     # more rows: new tickets
+    assert wider[0] is grown[0] and wider[1].numel() == 64
+    assert not wider[1].any()
+
+
+def _ssm_args(dtype=torch.bfloat16, B=1, T=100, H=3, hd=64, N=16):
+    return (torch.zeros(B, T, H, hd, dtype=dtype), torch.zeros(B, T, H),
+            torch.zeros(H), torch.zeros(B, T, N, dtype=dtype),
+            torch.zeros(B, T, N, dtype=dtype), torch.zeros(B, H, hd, N))
+
+
+@pytest.mark.parametrize("hd, N, ok", [
+    (64, 16, True), (16, 8, True), (8, 4, True), (128, 32, True),
+    (24, 16, True),                      # hd padded to 32 inside the kernel
+    (12, 16, False),                     # hd not a multiple of 8
+    (136, 16, False),                    # hd past 128
+    (64, 12, False), (64, 64, False),    # N not in STATE_DIMS
+])
+def test_ssm_checks_take_head_dims_of_8_up_to_128(hd, N, ok):
+    args = _ssm_args(hd=hd, N=N)
+    if ok:
+        tss._check(*args)
+    else:
+        with pytest.raises(ValueError, match="state"):
+            tss._check(*args)
+
+
+def test_ssm_checks_take_any_length_and_strided_views():
+    """Any T (the ragged last chunk is masked in the kernel), x as a
+    head-interleaved view and dt as a slice; state must be contiguous."""
+    for T in (1, 37, 64, 65, 2048):
+        tss._check(*_ssm_args(T=T))
+    x, dt, A, Bm, Cm, st = _ssm_args(T=40, H=6, hd=32)
+    xw = torch.zeros(1, 40, 6, 64, dtype=torch.bfloat16)[..., :32]
+    tss._check(xw, torch.zeros(1, 40, 12)[..., ::2], A, Bm, Cm, st)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss._check(x, dt, A, Bm, Cm,
+                   torch.zeros(1, 6, 16, 32).transpose(2, 3))
+
+
+def test_ssm_reads_16_byte_pieces_only_where_aligned():
+    """x, Bm and Cm go to the scan kernel with a flag: read in 16-byte
+    pieces (aligned base, strides and rows of whole 16-byte units) or
+    element by element (``unaligned`` says why not)."""
+    x = torch.zeros(1, 40, 6, 64, dtype=torch.bfloat16)
+    assert tfa.unaligned(x) is None and tfa.unaligned(x[..., :32]) is None
+    assert "base" in tfa.unaligned(x[..., 1:33])
+    assert "rows" in tfa.unaligned(
+        torch.zeros(1, 40, 6 * 36, dtype=torch.bfloat16).view(1, 40, 6, 36))
+    assert tfa.unaligned(torch.zeros(2, 40, 16, dtype=torch.bfloat16)) \
+        is None
+    assert "rows" in tfa.unaligned(torch.zeros(2, 40, 4,
+                                               dtype=torch.bfloat16))
+    assert tfa.unaligned(torch.zeros(2, 40, 4)) is None
+    assert "stride" in tfa.unaligned(torch.zeros(2, 40, 5)[..., :4])
+
+
+def test_ssm_scratch_is_allocated_once_and_grown(monkeypatch):
+    """The chunk states and decays, and the tickets, are kept per device
+    and replaced only by larger ones; tickets start at zero."""
+    monkeypatch.setattr(tss, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    n_chunk = -(-512 // tss.CHUNK)
+    states, ticket = tss.scratch(cpu, 1, 50, 64, 16, n_chunk)
+    assert states.numel() == 50 * n_chunk * (64 * 16 + 1)
+    assert ticket.numel() == 50 and not ticket.any()
+    same = tss.scratch(cpu, 1, 8, 64, 8, 2)
+    assert same[0] is states and same[1] is ticket
+    longer = tss.scratch(cpu, 1, 50, 64, 16, -(-2048 // tss.CHUNK))
+    assert longer[0].numel() == 50 * 32 * 1025 and longer[1] is ticket
+    assert tss.scratch(cpu, 3, 50, 64, 16, 1)[1].numel() == 150
 
 
 # ------------------------------------------------------------ the build
