@@ -11,7 +11,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 2. kernels — fails unless every head-dim instantiation of the bf16
    attention kernels (the forward, and the backward's dq and dkv) holds
    ``HGMMA`` (tensor-core) instructions (``cuobjdump -sass``) and every
-   bf16 instantiation of the SSM scan's two kernels ``HMMA`` or
+   bf16 instantiation of the two scans' two kernels each ``HMMA`` or
    ``HGMMA``, none of them spills a register, nor does any decode or
    scan kernel (their count, registers and spills are printed); then
    each kernel wrapper on the card against its plain PyTorch version on
@@ -23,8 +23,9 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    ring-buffer kv_pos with -1 holes, windows, hymba's GQA 5 at hd 64
    with its window crossed; for the two recurrent scans T = 1, a prime
    T, a T that is not a multiple of 32, a nonzero input state and decays
-   far past the clamp (in one chunk, and for the SSM scan over four
-   64-step chunks with a ragged tail), outputs and final states; for the
+   far past the clamp (in one chunk, and over four 64-step chunks with a
+   ragged tail), for the WKV scan also T = 64 and 65 and head dims 16 and
+   32 over several chunks, outputs and final states; for the
    two backward kernels dq, dk and dv on the same (q, k, v, o, lse, dO):
    the training shape, the JAX backward test's shapes with windows 0 and
    40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal, rows that see
@@ -34,8 +35,8 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    (where one exists) at the main-path shapes with CUDA events (the
    library's attention backward under the profiler), the forward with
    logsumexp also at hymba's serving shape and a decode admission's,
-   beside SDPA, the decode kernel also at hymba's decode shape, the SSM
-   scan also at T = 2048, and each call of the decode kernel and the two
+   beside SDPA, the decode kernel also at hymba's decode shape, both
+   scans also at T = 2048, and each call of the decode kernel and the two
    scans split by kernel under the profiler (the device's gap or overlap
    between launches). It checks nothing of the kernels, so it also
    times an older tree's kernels with this script copied beside them.
@@ -450,7 +451,11 @@ SSM_CASES = [
 ]
 # (label, B, T, H, hd, w): the rwkv6 main path, the shapes of
 # tests/test_kernels.py::test_wkv6, the same ragged lengths, and
-# tests/test_kernels.py::test_wkv6_extreme_decay's w = 1e-6
+# tests/test_kernels.py::test_wkv6_extreme_decay's w = 1e-6, in one chunk
+# and over four 64-step chunks with a ragged tail (where a divided
+# cumulative decay would overflow); one whole chunk and one step past it;
+# head dims 16 and 32 over several chunks; every case starts from a
+# nonzero state
 WKV_MAIN = ("main path", 1, 512, 64, 64, None)
 WKV_CASES = [
     WKV_MAIN,
@@ -461,6 +466,11 @@ WKV_CASES = [
     ("prime T", 2, 37, 4, 64, None),
     ("T = 100", 1, 100, 8, 64, None),
     ("extreme decay", 1, 64, 2, 16, 1e-6),
+    ("extreme decay, 4 chunks, ragged tail", 1, 200, 4, 64, 1e-6),
+    ("T = 64", 1, 64, 8, 64, None),
+    ("T = 65", 2, 65, 4, 64, None),
+    ("hd 16, 3 chunks", 2, 150, 4, 16, None),
+    ("hd 32, 4 chunks", 1, 250, 4, 32, None),
 ]
 
 
@@ -669,19 +679,19 @@ def kernel_split(fn, calls: int = 20) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            torch.cuda._sleep(SLEEP_CYCLES // 50)
+            torch.cuda._sleep(SLEEP_CYCLES // 10)
             fn()
             torch.cuda.synchronize()
     evs = sorted((e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
     # one group of kernels per call, each after its sleep (PyTorch's
-    # spin_kernel, ~1 ms, longer than any kernel split here); a call whose
+    # spin_kernel, ~5 ms, longer than any kernel split here); a call whose
     # group the profiler recorded incompletely is left out
     groups: list = []
     for e in evs:
         if "spin_kernel" in e.name or \
-                e.time_range.end - e.time_range.start > 500:
+                e.time_range.end - e.time_range.start > 2500:
             groups.append([])
         elif groups:
             groups[-1].append(e)
@@ -776,13 +786,13 @@ def time_decode(device, gen) -> dict:
     return out["qwen3 decode"]
 
 
-# T of row 6's timed calls: the hymba main path (the record's row) and
+# T of the scans' timed calls: the main paths (the record's rows) and
 # the longest of hymba's serving buckets
-SSM_TIMED_T = (512, 2048)
+SCAN_TIMED_T = (512, 2048)
 
 
 def time_scans(device, gen) -> dict:
-    """Rows 6 and 7 at their main-path shapes (bf16, as served), row 6
+    """Rows 6 and 7 at their main-path shapes (bf16, as served), both
     also at T = 2048, L2 warm as for kernels fed by the projections just
     before them. Bound: the bytes (each input once, the output and the
     final state once) against the FLOPs of the chunked matmul form the
@@ -797,7 +807,7 @@ def time_scans(device, gen) -> dict:
 
     out = {}
     _, B, _, H, hd, N, dts = SSM_MAIN
-    for T in SSM_TIMED_T:
+    for T in SCAN_TIMED_T:
         args = ssm_inputs(gen, torch.bfloat16, device, B, T, H, hd, N, dts)
         C = pick_block(T, 32)
         n_chunk = -(-T // C)
@@ -811,18 +821,20 @@ def time_scans(device, gen) -> dict:
         out[name] = dict(shape=(B, T, H, hd, N), bytes=nbytes, flops=flops,
                          run=lambda a=args: ss.ssm_scan(*a),
                          plain=lambda a=args: ss.ssm_scan_plain(*a))
-    _, B, T, H, hd, w = WKV_MAIN
-    wargs = wkv_inputs(gen, torch.bfloat16, device, B, T, H, hd, w)
-    C = pick_block(T, 32)
-    n_chunk = -(-T // C)
-    # r, k, v and o bf16, w fp32, u fp32, state in and out fp32
-    nbytes = 4 * (2 * B * T * H * hd) + 4 * B * T * H * hd + 4 * H * hd \
-        + 2 * (4 * B * H * hd * hd)
-    # per (row, head, chunk): r S, r k^T, scores v, and the state update
-    flops = 4.0 * B * H * n_chunk * C * hd * (hd + C)
-    out["wkv6_scan"] = dict(shape=(B, T, H, hd), bytes=nbytes, flops=flops,
-                            run=lambda: wk.wkv6_scan(*wargs),
-                            plain=lambda: wk.wkv6_scan_plain(*wargs))
+    _, B, _, H, hd, w = WKV_MAIN
+    for T in SCAN_TIMED_T:
+        wargs = wkv_inputs(gen, torch.bfloat16, device, B, T, H, hd, w)
+        C = pick_block(T, 32)
+        n_chunk = -(-T // C)
+        # r, k, v and o bf16, w fp32, u fp32, state in and out fp32
+        nbytes = 4 * (2 * B * T * H * hd) + 4 * B * T * H * hd \
+            + 4 * H * hd + 2 * (4 * B * H * hd * hd)
+        # per (row, head, chunk): r S, r k^T, scores v, and the state update
+        flops = 4.0 * B * H * n_chunk * C * hd * (hd + C)
+        name = "wkv6_scan" if T == WKV_MAIN[2] else f"wkv6_scan T={T}"
+        out[name] = dict(shape=(B, T, H, hd), bytes=nbytes, flops=flops,
+                         run=lambda a=wargs: wk.wkv6_scan(*a),
+                         plain=lambda a=wargs: wk.wkv6_scan_plain(*a))
     for name, r in out.items():
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["flops"],
                                              H100_BF16_FLOPS)
@@ -963,7 +975,7 @@ MATMUL_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 
 # substrings of the port's attention and scan kernels (csrc/*.cu)
 ATTENTION_NAMES = ("attn_fwd_", "attn_bwd_", "decode_attn_kernel")
-SCAN_NAMES = ("ssm_chunk_", "wkv6_scan_kernel")
+SCAN_NAMES = ("ssm_chunk_", "wkv6_chunk_")
 
 
 def launch_counters() -> list:
@@ -1735,17 +1747,20 @@ def ptxas_usage(log: str) -> dict:
 # name of each bf16 instantiation, how many instantiations each has, the
 # tensor-core instructions that count): the attention kernels at hd 32,
 # 64 and 128 on wgmma; the SSM scan's two kernels at hd up to 16, 32, 64
-# and 128 times N up to 16 and 32 on mma.sync
+# and 128 times N up to 16 and 32, and the WKV scan's two at hd 16, 32
+# and 64, on mma.sync
 TENSOR_CORE_KERNELS = {
     "flash_attention": (("attn_fwd_wgmma",), "", 3, ("HGMMA",)),
     "flash_attention_bwd": (("attn_bwd_dq_wgmma", "attn_bwd_dkv_wgmma"), "",
                             3, ("HGMMA",)),
     "ssm_scan": (("ssm_chunk_state_kernel", "ssm_chunk_out_kernel"),
                  "bfloat16", 8, ("HMMA", "HGMMA")),
+    "wkv6_scan": (("wkv6_chunk_state_kernel", "wkv6_chunk_out_kernel"),
+                  "bfloat16", 3, ("HMMA", "HGMMA")),
 }
 # sources none of whose kernels may spill (every instantiation, both
 # dtypes), besides the tensor-core kernels above
-NO_SPILL = ("decode_attention", "ssm_scan")
+NO_SPILL = ("decode_attention", "ssm_scan", "wkv6_scan")
 
 
 def spilled(usage) -> bool:
@@ -1754,11 +1769,12 @@ def spilled(usage) -> bool:
 
 
 def tensor_core_check(logs: dict) -> None:
-    """The bf16 attention kernels and SSM scan run on the tensor cores:
+    """The bf16 attention kernels and scans run on the tensor cores:
     every bf16 instantiation of the forward's ``attn_fwd_wgmma``, the
     backward's ``attn_bwd_dq_wgmma`` and ``attn_bwd_dkv_wgmma`` (HGMMA)
-    and the scan's ``ssm_chunk_state_kernel`` and ``ssm_chunk_out_kernel``
-    (HMMA or HGMMA) in the built libraries must hold such instructions
+    and the scans' ``ssm_chunk_{state,out}_kernel`` and
+    ``wkv6_chunk_{state,out}_kernel`` (HMMA or HGMMA) in the built
+    libraries must hold such instructions
     (``cuobjdump -sass``) and, where this run's ptxas log lists it, spill
     nothing; nor may any kernel of ``NO_SPILL``. Prints each one's count,
     registers and spills."""
@@ -1901,6 +1917,12 @@ def main() -> int:
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, hybrid serve, hybrid decode, "
           f"ssm serve, fp32 train, bf16 train): {runs}")
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.kernels import wkv6_scan as wk
+    for name, m in (("ssm_scan", ss), ("wkv6_scan", wk)):
+        for dev, (buf, _) in m._SCRATCH.items():
+            print(f"  {name} scratch on {dev}: {4 * buf.numel()} B of chunk "
+                  "states and decays (grown to this run's largest call)")
 
     record = {"kernels": [
         {"name": name, "route": "cuda",

@@ -264,6 +264,83 @@ def chunked_wkv6(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     return o[:, :T].to(r.dtype), S
 
 
+def subchunk_wkv6(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                  state: Optional[Tensor] = None, chunk: int = 64,
+                  sub: int = 16) -> tuple[Tensor, Tensor]:
+    """The algorithm of ``csrc/wkv6_scan.cu`` in plain PyTorch, fp32: a
+    model for the tests (the main path never runs it).
+
+    Fixed ``chunk``-step chunks from t = 0; a step past T has log-decay 0
+    and r = k = v = 0. With cum_t the chunk's inclusive sum of log decays
+    and ex_t = cum_{t-1} (0 at the chunk's first step), every decay is
+    exp of a difference that is <= 0, never a quotient:
+      inter  (r_t exp(ex_t)) S_in;
+      blocks of ``sub`` steps, t in block a, s in an earlier block, with
+        ref = cum at the step before block a:
+        (r_t exp(ex_t - ref)) . (k_s exp(ref - cum_s)) v_s;
+      s < t in t's own block: t in its upper half and s in its lower
+        half the same way against cum at the lower half's last step, the
+        rest (two triangles) sum_i r_t k_s exp(ex_t - cum_s) v_s channel
+        by channel; and the bonus (r_t . u k_t) v_t;
+      S_out = exp(cum_C) S_in + (k_s exp(cum_C - cum_s))^T v_s.
+    """
+    B, T, H, hd = r.shape
+    S = _zero_state(B, H, hd, hd, r.device) if state is None \
+        else state.float()
+    rf, kf, vf = r.float(), k.float(), v.float()
+    lw = wkv6_log_decay(w.float())
+    pad = (-T) % chunk
+    if pad:
+        z = lambda x: torch.nn.functional.pad(          # noqa: E731
+            x, (0, 0, 0, 0, 0, pad))
+        rf, kf, vf, lw = z(rf), z(kf), z(vf), z(lw)
+    n = rf.shape[1] // chunk
+    resh = lambda x: x.reshape(B, n, chunk, H, hd).permute(  # noqa: E731
+        1, 0, 3, 2, 4)
+    rs, ks, vs, ls = map(resh, (rf, kf, vf, lw))          # (n,B,H,C,hd)
+    half = sub // 2
+    strict = torch.tril(torch.ones((sub, sub), dtype=torch.bool,
+                                   device=r.device), diagonal=-1)
+    strict[half:, :half] = False          # the quadrant, by its reference
+    uf = u.float()[None, :, None, :]
+    outs = []
+    for c in range(n):
+        rc, kc, vc = rs[c], ks[c], vs[c]
+        cum = torch.cumsum(ls[c], dim=-2)
+        ex = torch.cat([torch.zeros_like(cum[..., :1, :]),
+                        cum[..., :-1, :]], dim=-2)
+        o = torch.einsum("bhck,bhkv->bhcv", rc * torch.exp(ex), S)
+        for a in range(chunk // sub):
+            ta = slice(a * sub, (a + 1) * sub)
+            oa = o[..., ta, :]
+            if a:
+                tb = slice(0, a * sub)
+                ref = cum[..., a * sub - 1:a * sub, :]
+                rt = rc[..., ta, :] * torch.exp(ex[..., ta, :] - ref)
+                kt = kc[..., tb, :] * torch.exp(ref - cum[..., tb, :])
+                oa = oa + (rt @ kt.transpose(-1, -2)) @ vc[..., tb, :]
+            d = ex[..., ta, None, :] - cum[..., None, ta, :]   # (t, s, i)
+            dec = torch.exp(d.masked_fill(~strict[..., None], -torch.inf))
+            sc = torch.einsum("bhti,bhsi,bhtsi->bhts", rc[..., ta, :],
+                              kc[..., ta, :], dec)
+            bonus = torch.sum(rc[..., ta, :] * uf * kc[..., ta, :], dim=-1)
+            sc = sc + torch.diag_embed(bonus)
+            tu = slice(a * sub + half, (a + 1) * sub)
+            tl = slice(a * sub, a * sub + half)
+            ref = cum[..., a * sub + half - 1:a * sub + half, :]
+            rt = rc[..., tu, :] * torch.exp(ex[..., tu, :] - ref)
+            kt = kc[..., tl, :] * torch.exp(ref - cum[..., tl, :])
+            sc[..., half:, :half] = rt @ kt.transpose(-1, -2)
+            o[..., ta, :] = oa + sc @ vc[..., ta, :]
+        outs.append(o)
+        last = cum[..., -1:, :]
+        kt = kc * torch.exp(last - cum)
+        S = torch.exp(last[..., 0, :, None]) * S \
+            + kt.transpose(-1, -2) @ vc
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(B, n * chunk, H, hd)
+    return o[:, :T].to(r.dtype), S
+
+
 # ---------------------------------------------------------------------------
 # Mamba2-style selective scan oracle (hymba SSM heads)
 # ---------------------------------------------------------------------------

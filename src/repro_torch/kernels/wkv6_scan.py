@@ -11,6 +11,13 @@ the kernel, so a run can show its path went through it.
 Types: r, k and v in the model dtype (float32 or bfloat16, alike); the
 decay w (``exp(-exp(.))`` of a float32 sum), the bonus u and the state
 always float32. o comes back in r's dtype.
+
+The kernel cuts time into ``CHUNK``-step chunks (three launches: chunk
+states, their carry, then the outputs; ``csrc/wkv6_scan.cu`` says why;
+``ref.subchunk_wkv6`` is its algorithm in plain PyTorch). Its scratch, a
+state and hd decays per (row, head, chunk), is allocated here once per
+device (:func:`scratch`) and grown when a call needs more; one launch
+may use it at a time, that is, one stream at a time.
 """
 from __future__ import annotations
 
@@ -18,12 +25,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.flash_attention import _DTYPES, _no_backward, _on_cpu
+from repro_torch.kernels.flash_attention import (_DTYPES, _no_backward,
+                                                 _on_cpu, grown_scratch,
+                                                 unaligned)
 from repro_torch.kernels.ref import chunked_wkv6, pick_block
 
 Tensor = torch.Tensor
 
 HEAD_DIMS = (16, 32, 64)      # csrc/wkv6_scan.cu::launch_hd
+CHUNK = 64                    # time steps per chunk; csrc/wkv6_scan.cu::C
 
 # kernel launches; chip_smoke.py resets and reads this
 LAUNCHES = {"wkv6_scan": 0}
@@ -39,8 +49,21 @@ def wkv6_scan_plain(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
                         chunk=pick_block(r.shape[1], 32))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 15 + [ctypes.c_int, ctypes.c_void_p])
+# device -> (chunk states and decays fp32, no tickets), grown on demand
+_SCRATCH: dict = {}
+
+
+def scratch(device: torch.device, B: int, H: int, hd: int,
+            n_chunk: int) -> Tensor:
+    """The device's fp32 chunk buffer: B H n_chunk hd hd states, then
+    B H n_chunk hd decays."""
+    return grown_scratch(_SCRATCH, device, B * H * n_chunk * (hd * hd + hd),
+                         0)[0]
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p])
 
 
 def _fn():
@@ -83,7 +106,10 @@ def _check(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
             raise ValueError(f"{name}'s head_dim axis must be contiguous")
     if not (u.is_contiguous() and state.is_contiguous()):
         raise ValueError("u and state must be contiguous")
-    if B > 65535 or T >= 2 ** 31:
+    if state.data_ptr() % 16:
+        raise ValueError("state must start on a 16-byte boundary (the "
+                         "kernel reads it in 16-byte pieces)")
+    if B > 65535 or H > 65535 or T >= 2 ** 31 - CHUNK:
         raise ValueError(f"shape {tuple(r.shape)} out of the kernel's range")
 
 
@@ -96,16 +122,21 @@ def wkv6_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
     _no_backward("wkv6_scan", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
     B, T, H, hd = r.shape
+    n_chunk = -(-T // CHUNK)
     fn = _fn()
     o = torch.empty(r.shape, dtype=r.dtype, device=r.device)
     s_out = torch.empty(state.shape, dtype=torch.float32, device=r.device)
+    states = scratch(r.device, B, H, hd, n_chunk)
+    decays_ptr = states.data_ptr() + 4 * B * H * n_chunk * hd * hd
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                  u.data_ptr(), state.data_ptr(), o.data_ptr(),
-                 s_out.data_ptr(), B, T, H, hd,
-                 *(s for t in (r, k, v, w, o) for s in t.stride()[:3]),
-                 _DTYPES[r.dtype], stream)
+                 s_out.data_ptr(), states.data_ptr(), decays_ptr,
+                 B, T, H, hd, n_chunk,
+                 *(s for t in (r, k, v, w) for s in t.stride()[:3]),
+                 int(all(unaligned(t) is None for t in (r, k, v))),
+                 int(unaligned(w) is None), _DTYPES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"wkv6_scan_fwd launch failed: CUDA error {err}")
     LAUNCHES["wkv6_scan"] += 1

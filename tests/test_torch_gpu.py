@@ -330,6 +330,9 @@ WKV_CASES = [  # B, T, H, hd, w (None: random decays)
     (1, 32, 1, 16, None), (2, 128, 3, 32, None), (2, 96, 2, 64, None),
     (1, 1, 64, 64, None), (2, 37, 4, 64, None), (1, 100, 8, 64, None),
     (1, 64, 2, 16, 1e-6),               # decay far below the clamp
+    (1, 200, 4, 64, 1e-6),              # the same over 4 chunks, ragged
+    (1, 64, 8, 64, None), (2, 65, 4, 64, None),   # one chunk, one step past
+    (2, 150, 4, 16, None), (1, 250, 4, 32, None),  # hd 16, 32: many chunks
 ]
 
 
@@ -382,6 +385,22 @@ def test_wkv6_kernel_matches_plain_version(cuda, dtype, case):
     assert torch.isfinite(o.float()).all() and torch.isfinite(s).all()
     torch.testing.assert_close(o.float(), o2.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(s, s2, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_row_does_not_depend_on_length_or_batch(cuda, dtype):
+    """Fixed 64-step chunks from t = 0, masks by select and fixed
+    summation orders: o[:, :t] is bit-identical for a call of length t and
+    one of length T > t with the same prefix, and a row's o and state are
+    the same alone as in a batch of 3 (the carry takes no ticket: it is a
+    launch of its own)."""
+    r, k, v, w, u, s0 = _wkv_case(cuda, dtype, 3, 300, 4, 64)
+    t = 150                             # chunks 0 and 1, then 22 steps
+    o, s = wk.wkv6_scan(r, k, v, w, u, s0)
+    o_t, _ = wk.wkv6_scan(r[:, :t], k[:, :t], v[:, :t], w[:, :t], u, s0)
+    assert torch.equal(o[:, :t], o_t)
+    o1, s1 = wk.wkv6_scan(r[1:2], k[1:2], v[1:2], w[1:2], u, s0[1:2])
+    assert torch.equal(o1, o[1:2]) and torch.equal(s1, s[1:2])
 
 
 def test_scan_kernels_read_strided_views_and_count_launches(cuda):

@@ -22,6 +22,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ssm_scan as tss
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import wkv6_scan as twk
 
 ATOL, RTOL = 2e-5, 1e-3
 LSE_ATOL = 1e-5
@@ -414,6 +415,47 @@ def test_ssm_scratch_is_allocated_once_and_grown(monkeypatch):
     longer = tss.scratch(cpu, 1, 50, 64, 16, -(-2048 // tss.CHUNK))
     assert longer[0].numel() == 50 * 32 * 1025 and longer[1] is ticket
     assert tss.scratch(cpu, 3, 50, 64, 16, 1)[1].numel() == 150
+
+
+def _wkv_args(dtype=torch.bfloat16, B=1, T=100, H=3, hd=64):
+    return (*(torch.zeros(B, T, H, hd, dtype=dtype),) * 3,
+            torch.zeros(B, T, H, hd), torch.zeros(H, hd),
+            torch.zeros(B, H, hd, hd))
+
+
+def test_wkv6_checks_take_any_length_and_strided_views():
+    """Any T (the kernel masks the ragged last 64-step chunk), r, k and v
+    as head-interleaved views of one projection and w as a slice; u and
+    the state must be contiguous."""
+    for T in (1, 37, 64, 65, 2048):
+        twk._check(*_wkv_args(T=T))
+    r, k, v, w, u, st = _wkv_args(T=40, H=6, hd=32)
+    rkv = torch.zeros(1, 40, 6, 3 * 32, dtype=torch.bfloat16)
+    twk._check(rkv[..., :32], rkv[..., 32:64], rkv[..., 64:],
+               torch.zeros(1, 40, 12, 32)[:, :, ::2], u, st)
+    with pytest.raises(ValueError, match="contiguous"):
+        twk._check(r, k, v, w, u, torch.zeros(1, 6, 32, 32).transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        twk._check(r, k, v, torch.zeros(1, 40, 6, 64)[..., ::2], u, st)
+    with pytest.raises(ValueError, match="16-byte"):
+        twk._check(r, k, v, w, u,
+                   torch.zeros(6 * 32 * 32 + 1)[1:].view(1, 6, 32, 32))
+
+
+def test_wkv6_scratch_is_allocated_once_and_grown(monkeypatch):
+    """The chunk states and their decays are kept per device and
+    replaced only by a larger buffer when a call needs more."""
+    monkeypatch.setattr(twk, "_SCRATCH", {})
+    cpu = torch.device("cpu")
+    n_chunk = -(-512 // twk.CHUNK)
+    states = twk.scratch(cpu, 1, 64, 64, n_chunk)
+    assert states.numel() == 64 * n_chunk * (64 * 64 + 64)
+    assert states.dtype == torch.float32
+    assert twk.scratch(cpu, 2, 8, 32, 3) is states
+    longer = twk.scratch(cpu, 1, 64, 64, -(-2048 // twk.CHUNK))
+    assert longer.numel() == 64 * 32 * 4160
+    assert twk.scratch(cpu, 3, 64, 64, 1) is longer
+    assert twk.scratch(cpu, 3, 64, 64, 11).numel() == 3 * 64 * 11 * 4160
 
 
 # ------------------------------------------------------------ the build

@@ -145,6 +145,23 @@ def test_wkv6_extreme_decay_stays_finite():
         _close(got_s, want_s)
 
 
+@pytest.mark.parametrize("B,T,H,hd,w", [
+    (1, 200, 2, 64, 1e-6),             # far below the clamp, 4 chunks, ragged
+    (1, 32, 1, 16, None), (2, 128, 3, 32, None), (2, 96, 2, 64, None),
+])
+def test_wkv6_kernel_algorithm_matches_jax(B, T, H, hd, w):
+    """``ref.subchunk_wkv6``, the CUDA kernel's algorithm in plain PyTorch
+    (64-step chunks, decays against 16-step sub-chunk references, never
+    divided), against the JAX oracle: outputs and final states, finite
+    where a quotient of cumulative decays over 64 steps would overflow."""
+    args = _wkv_inputs(7, B, T, H, hd, w=w)
+    want_o, want_s = jref.ref_wkv6(*map(jnp.asarray, args))
+    got_o, got_s = tref.subchunk_wkv6(*_t(*args))
+    assert torch.isfinite(got_o).all() and torch.isfinite(got_s).all()
+    _close(got_o, want_o, 2e-5, 1e-3)
+    _close(got_s, want_s, 2e-5, 1e-3)
+
+
 def test_wkv6_step_matches_jax_and_the_scan():
     r, k, v, w, u, s0 = _wkv_inputs(6, 2, 1, 3, 32)
     want_o, want_s = jops.wkv6_step(*map(jnp.asarray, (r, k, v, w, u, s0)))
