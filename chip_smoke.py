@@ -60,7 +60,32 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    the transport -> decode pool): tokens equal the single-pool run, KV
    handoffs arrive, no stream is resident on the prefill pool. Then a
    timed bfloat16 run and one decode step under ``torch.profiler``.
-5. hybrid  — full-width hymba-1.5b (32 layers: attention with window
+5. server  — full-width qwen3-1.7b (28 layers) in float32 with TF32
+   off through the event-driven server: ``run_serve_loop`` bootstraps a
+   ``ServingController`` (``GraftPlanner`` plans) with four clients at
+   partition points 3, 9, 17 and 0, and a ``GraftServer`` over an
+   ``InProcessTransport`` serves them wall-clock from client threads
+   for 8 s after a warm-up: prompts of 128-496 tokens, 4000 ms budgets,
+   client 0 moving to p = 4 halfway (a replan applied under traffic),
+   the last client sending decode streams of 16 new tokens (decode_ctx
+   512, the first and third on one prompt); the controller's window is
+   4 s, so a client silent that long departs. It fails unless the server
+   drains, a replan is applied under traffic, the control loop raised
+   nothing and the controller's plan is the deployed one (a replan that
+   would strand a client's requests or remove a pool holding a decode
+   stream is refused, reverted and retried), nothing is shed, finished
+   locally or decoded locally, every one-shot result (up to 64) matches
+   the monolithic forward and every decode stream the unbatched
+   reference token for token (the smallest top-1 minus top-2 margin is
+   printed), and ``flash_attention``, ``flash_attention_lse`` and
+   ``decode_attention`` each launched. Then the same streams through a
+   ``GraftServer`` over ``disagg_plan``: KV handoffs arrive and the
+   tokens equal the loop's. Then the loop in bfloat16, whose
+   ``summarize_records`` figures (latency p50/p99 and attainment, TTFT
+   and TPOT p50/p99, mean batch, replans and their apply times) are
+   printed beside the card's name and power limit, checked for nothing
+   but finite results and the control loop's state.
+6. hybrid  — full-width hymba-1.5b (32 layers: attention with window
    1024 beside 50 SSM heads of 64 x 16 state) in float32: the serve
    phase's path on the pad-to-bucket pools (hybrid is not packable), six
    prompts of 128-1536 tokens, one past the window; then the decode
@@ -68,13 +93,13 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    reports no hit and the decode pool takes no handoff blocks (it
    recomputes each prompt). ``ssm_scan`` must launch on the serve path
    and in the decode admissions.
-6. ssm     — full-width rwkv6-7b (32 layers, 64 WKV heads of 64) in
+7. ssm     — full-width rwkv6-7b (32 layers, 64 WKV heads of 64) in
    float32 through the serve phase's path (pad-to-bucket pools, prompts
    of 128-512 tokens); then one prompt's ``prefill`` and 8 teacher-forced
    ``decode_step``s held against the forward at those positions (the
    WKV state the scan kernel hands to decode); then bfloat16 waves, the
    last one profiled. ``wkv6_scan`` must launch.
-7. train   — full-width qwen3-1.7b (28 layers, random weights) on the
+8. train   — full-width qwen3-1.7b (28 layers, random weights) on the
    ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
    off: the loss and every gradient leaf through the kernels against
    autograd of the plain attention (``ops.attention`` swapped here
@@ -90,6 +115,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 Each model is freed before the next one loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model,
+the float32 server loop and its disaggregated streams,
 and the float32 AdamW steps and timed bfloat16 steps, each path's
 counters zeroed just before it and read just after.
 The line before the last is ``nvidia-smi``'s name and power limit, the
@@ -1444,7 +1470,236 @@ def profile_decode_step(cfg, book, params, prompts, device) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: training on the main path
+# phase 5: the event-driven server on the main path
+# ---------------------------------------------------------------------------
+
+# four clients; the last one decodes (p = 0: its route is the full-range
+# pool, the only one that can hold its KV), client 0 moves from 3 to 4
+# halfway through the traffic
+SERVER_POINTS = (3, 9, 17, 0)
+# requests/s per client, the least the serve loop sends: the card's
+# server falls behind at more in float32 (PERF.md §6), as every
+# one-shot request's full-vocab logits (0.3 GB at 496 tokens) cross the
+# host and the planner's batch-1 pools decode one stream at a time. The
+# decode client sends four streams, the first and third on one prompt.
+SERVER_RATES = (0.5, 0.5, 0.5, 0.5)
+SERVER_BUDGET_MS = 4000.0                      # the reference smokes' budget
+SERVER_SECONDS = 8.0
+SERVER_PERIOD_MS = 250.0                       # the controller's timer
+# every prompt leaves room for 16 new tokens in the 512-slot decode cache
+SERVER_PROMPTS = (128, DECODE_CTX - MAX_NEW)
+SERVER_CHECK = 64                              # one-shot results checked
+
+
+def server_loop(cfg, book, params, telemetry) -> dict:
+    """``run_serve_loop`` over full-width weights: the planner's plan
+    through a ``ServingController`` (its window half the traffic's
+    seconds, so a client that falls silent departs), client threads for
+    ``SERVER_SECONDS`` with a partition shift halfway, decode streams
+    from the last client. Returns the report with the served requests,
+    unchecked: the checks' own launches must not count."""
+    from repro_torch.core import Fragment
+    from repro_torch.serving import run_serve_loop
+    frags = [Fragment(cfg.name, p, SERVER_BUDGET_MS, q, client=f"c{i}")
+             for i, (p, q) in enumerate(zip(SERVER_POINTS, SERVER_RATES))]
+    return run_serve_loop(
+        setup=(cfg, book, params), frags=frags, seconds=SERVER_SECONDS,
+        seed=0, shift_frac=0.5, control_period_ms=SERVER_PERIOD_MS,
+        prompt_lens=SERVER_PROMPTS, decode_max_new=MAX_NEW,
+        check_numerics=False, telemetry=telemetry)
+
+
+def print_server_report(rep, tel, label) -> None:
+    hist = {n: tel.histogram(n) for n in ("server/exec_ms",
+                                          "server/uplink_ms",
+                                          "replan/apply_ms")}
+    print(f"  {label}: served {rep['served']} of {rep['offered']} offered "
+          f"in {rep['wall_s']:.3f} s of traffic (drained "
+          f"{rep['drained']}); shed {rep['shed']}, local finishes "
+          f"{rep['local_finishes']}, decode local {rep['decode_local']}, "
+          f"rerouted {rep['rerouted']}, parked {rep['waited']}; "
+          f"{rep['n_stage_pools']} pools, mean batch "
+          f"{rep['mean_batch']:.3f}")
+    print("    host clock, ms (count, p50, p99): " + "; ".join(
+        f"{n} ({h.count()}, {h.quantile(0.5):.1f}, {h.quantile(0.99):.1f})"
+        for n, h in hist.items()))
+    print(f"    replans under traffic {rep['controller_replans']} (applied "
+          f"by the timer {rep['timer_replans']}, refused and retried "
+          f"{rep['applies_refused']}; triggers {rep['controller_triggers']}"
+          f"); control-tick errors {rep['tick_errors']}; controller plan "
+          f"deployed {rep['plan_in_sync']}")
+    for c, r in rep["clients"].items():
+        print(f"    client {c}: n {r['n']}, p50 {r['p50_ms']:.1f} ms, p99 "
+              f"{r['p99_ms']:.1f} ms against {r['budget_ms']:.0f} ms, "
+              f"attainment {r['attainment']:.3f}")
+
+
+def serve_streams(cfg, book, params, prompts, *, disagg, device) -> tuple:
+    """The decode prompts through a ``GraftServer`` over a single-pool
+    or a disaggregated decode plan; returns (tokens per stream, report,
+    pool stats by role)."""
+    from repro_torch.core import Fragment
+    from repro_torch.serving import (GraftExecutor, GraftServer,
+                                     InProcessTransport, ServeRequest)
+    from repro_torch.serving.smoke import decode_plan, disagg_plan
+    frags = [Fragment(cfg.name, 0, SERVER_BUDGET_MS, 30.0, client="c3")]
+    plan = (disagg_plan if disagg else decode_plan)(cfg, book, frags,
+                                                    batch=DECODE_BATCH)
+    ex = GraftExecutor(plan, params, cfg, InProcessTransport(),
+                       decode_ctx=DECODE_CTX, kv_blocks=KV_BLOCKS,
+                       kv_block_tokens=KV_BLOCK_TOKENS,
+                       decode_disagg=disagg, device=device)
+    server = GraftServer(ex, book=book).start()
+    reqs = [ServeRequest(client="c3", tokens=t, max_new_tokens=MAX_NEW)
+            for t in prompts]
+    try:
+        for r in reqs:
+            server.submit(r, 0, SERVER_BUDGET_MS)
+        if not server.join(timeout=300.0):
+            fail("the disaggregated server never drained")
+        rep = server.report()
+        stats = {st["role"]: st for st in ex.pool_stats().values()}
+    finally:
+        server.stop(drain=False, timeout=10.0)
+        ex.close()
+    return [r.out_tokens for r in reqs], rep, stats
+
+
+def check_control(rep, label) -> None:
+    """The control loop raised nothing, every refused replan was reverted
+    in the controller, and the controller believes the deployed plan."""
+    if rep["tick_errors"] or not rep["plan_in_sync"] or \
+            rep["controller_refused"] != rep["applies_refused"]:
+        fail(f"{label}: {rep['tick_errors']} control-tick errors, "
+             f"controller plan deployed {rep['plan_in_sync']}, refused "
+             f"{rep['applies_refused']} by the server and "
+             f"{rep['controller_refused']} by the controller")
+
+
+def server_phase(device) -> dict:
+    """The server runtime serving full-width qwen3-1.7b under a live
+    replan; returns the kernels' launch counts over the float32 server
+    runs (the loop, then the disaggregated streams)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.server import check_serve_report
+    from repro_torch.serving.smoke import smoke_setup
+    from repro_torch.serving.telemetry import Telemetry
+
+    t_phase = t0 = time.perf_counter()
+    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
+                                    dtype="float32", seq_len=512,
+                                    device=device)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; clients at "
+          f"{SERVER_POINTS} (c0 moves to {SERVER_POINTS[0] + 1} halfway, "
+          f"c{len(SERVER_POINTS) - 1} decodes {MAX_NEW} tokens), "
+          f"{SERVER_RATES} requests/s, budget {SERVER_BUDGET_MS:.0f} ms, "
+          f"prompts {SERVER_PROMPTS[0]}-{SERVER_PROMPTS[1]} tokens, "
+          f"{SERVER_SECONDS:.0f} s; init {time.perf_counter() - t0:.1f} s")
+
+    reset_launches()                        # the server path starts here
+    t0 = time.perf_counter()
+    tel = Telemetry(process="serve")
+    rep = server_loop(cfg, book, params, tel)
+    torch.cuda.synchronize()
+    launches = read_launches()              # ... pauses here for checks
+    print(f"  fp32 loop: {time.perf_counter() - t0:.1f} s with warm-up and "
+          f"drain; kernel launches {launches}")
+    print_server_report(rep, tel, "fp32 loop")
+    if not rep["drained"]:
+        fail("the server did not drain")
+    if rep["controller_replans"] < 1 or rep["timer_replans"] < 1:
+        fail("no replan applied under traffic")
+    check_control(rep, "fp32 loop")
+    if rep["shed"] or rep["local_finishes"] or rep["decode_local"]:
+        fail(f"shed {rep['shed']}, local finishes {rep['local_finishes']}, "
+             f"decode local {rep['decode_local']}: every request must be "
+             "served by the pools")
+    if not all(launches[n] > 0 for n in ("flash_attention",
+                                         "flash_attention_lse",
+                                         "decode_attention")):
+        fail(f"a kernel of the server path never launched: {launches}")
+    if any(r.result is None for r, _ in rep["requests"]):
+        fail("a one-shot request got no result")
+    check_serve_report(cfg, params, rep, max_check=SERVER_CHECK)
+    if not rep["numerics_ok"]:
+        fail(f"fp32 loop: a result is off the monolithic forward: "
+             f"{rep['numerics_error']}")
+    print(f"  fp32 loop: {rep['numerics_checked']} of "
+          f"{len(rep['requests'])} one-shot results match the monolithic "
+          f"forward (atol 5e-05, rtol 0.001; largest |diff| "
+          f"{rep['numerics_max_abs']:.3e})")
+    streams = rep["decoded"]
+    prompts = [r.tokens for r, _ in streams]
+    if len(streams) < 2 or not any(
+            np.array_equal(a, b) for i, a in enumerate(prompts)
+            for b in prompts[:i]):
+        fail(f"{len(streams)} decode streams, none repeating a prompt")
+    if not rep.get("decode_numerics_ok") or \
+            rep["decode_checked"] != len(streams):
+        fail(f"fp32 loop: {rep.get('decode_checked', 0)} of {len(streams)} "
+             "decode streams checked, or one differs from the reference "
+             f"(smallest reference margin {rep.get('decode_min_margin')})")
+    print(f"  fp32 loop: {len(streams)} decode streams (prompt lengths "
+          f"{[len(t) for t in prompts]}) equal the unbatched reference "
+          f"token for token; smallest top-1 minus top-2 margin "
+          f"{rep['decode_min_margin']:.4g}")
+
+    reset_launches()                        # ... and resumes here
+    single = [r.out_tokens for r, _ in streams]
+    split, drep, dstats = serve_streams(cfg, book, params, prompts,
+                                        disagg=True, device=device)
+    torch.cuda.synchronize()
+    more = read_launches()                  # ... and ends here
+    launches = {k: launches[k] + more[k] for k in launches}
+    taken = dstats["decode"]["kv_handoffs_in"]
+    print(f"  disaggregated server: {drep['decode_served']} streams, "
+          f"{drep['kv_handoffs']} KV handoffs ({drep['kv_handoff_ms']:.2f} "
+          f"ms each on average), {taken} taken in, decode local "
+          f"{drep['decode_local']}; kernel launches {more}")
+    if split != single:
+        fail(f"disaggregated server tokens {split} != the loop's {single}")
+    if drep["kv_handoffs"] < 1 or taken < 1 or drep["decode_local"]:
+        fail("the disaggregated server handed no KV over")
+    print(f"  kernel launches on the server path: {launches}")
+    del params, rep
+    free_device()
+
+    # the same loop in bfloat16, printed only
+    cfg16, book16, params16 = smoke_setup("qwen3-1.7b", full_width=True,
+                                          dtype="bfloat16", seq_len=512,
+                                          device=device)
+    tel = Telemetry(process="serve")
+    rep16 = server_loop(cfg16, book16, params16, tel)
+    print_server_report(rep16, tel, "bf16 loop")
+    check_control(rep16, "bf16 loop")
+    dec = rep16.get("decode", {})
+    apply_ms = [e["apply_ms"] for e in rep16["audit"]
+                if e["apply_ms"] is not None]
+    print(f"  bf16 server (host clock; {smi_line()}): served "
+          f"{rep16['served']} of {rep16['offered']} offered; latency p50 "
+          f"{rep16['p50_ms']:.1f} ms, p99 {rep16['p99_ms']:.1f} ms, "
+          f"attainment {rep16['attainment']:.3f} at a "
+          f"{SERVER_BUDGET_MS:.0f} ms budget; decode TTFT p50 "
+          f"{dec.get('ttft_p50_ms', float('nan')):.1f} ms, p99 "
+          f"{dec.get('ttft_p99_ms', float('nan')):.1f} ms, TPOT p50 "
+          f"{dec.get('tpot_p50_ms', float('nan')):.1f} ms, p99 "
+          f"{dec.get('tpot_p99_ms', float('nan')):.1f} ms; mean batch "
+          f"{rep16['mean_batch']:.3f}; replans {rep16['controller_replans']}"
+          f", apply ms {[round(a, 3) for a in apply_ms]}")
+    for req, _ in rep16["requests"]:
+        if req.result is None or not torch.isfinite(req.result.float()).all():
+            fail(f"bf16 loop: {req.client} result missing or not finite")
+    del params16
+    free_device()
+    print(f"  server phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training on the main path
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 2, 512
@@ -1810,7 +2065,8 @@ def tensor_core_check(logs: dict) -> None:
                 fail(f"{f} spills registers: {u}")
 
 
-PHASES = ("kernels", "timing", "serve", "decode", "hybrid", "ssm", "train")
+PHASES = ("kernels", "timing", "serve", "decode", "server", "hybrid", "ssm",
+          "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -1885,6 +2141,10 @@ def main() -> int:
     if "decode" in phases:
         print("== decode")
         runs.append(decode_phase(device))
+    if "server" in phases:
+        print("== server")
+        free_device()
+        runs.append(server_phase(device))
     if "hybrid" in phases:
         print("== hybrid")
         free_device()
@@ -1915,8 +2175,8 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s: no record")
         return 0
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
-    print(f"  launches per path (serve, decode, hybrid serve, hybrid decode, "
-          f"ssm serve, fp32 train, bf16 train): {runs}")
+    print(f"  launches per path (serve, decode, server, hybrid serve, hybrid "
+          f"decode, ssm serve, fp32 train, bf16 train): {runs}")
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
     for name, m in (("ssm_scan", ss), ("wkv6_scan", wk)):

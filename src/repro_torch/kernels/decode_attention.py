@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _DTYPES,
                                                  _no_backward, _on_cpu,
-                                                 grown_scratch, unaligned)
+                                                 count_launch, grown_scratch,
+                                                 unaligned)
 from repro_torch.kernels.ref import attend_cache_plain
 
 Tensor = torch.Tensor
@@ -156,5 +157,5 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["decode_attention"] += 1
+    count_launch(LAUNCHES, "decode_attention")
     return o

@@ -23,6 +23,7 @@ launches per wrapper so a run can show its main path went through them.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -41,6 +42,17 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_lse": 0}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch of ``name`` to a wrapper's ``LAUNCHES``: a server's
+    threads launch kernels at once, and ``counts[name] += 1`` alone is
+    not atomic."""
+    with _count_lock:
+        counts[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +253,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor,
     _no_backward("flash_attention", q, k, v)
     o, _ = _launch(q, k, v, seg_ids, causal=causal, window=window,
                    scale=scale, with_lse=False)
-    LAUNCHES["flash_attention"] += 1
+    count_launch(LAUNCHES, "flash_attention")
     return o
 
 
@@ -257,5 +269,5 @@ def flash_attention_lse(q: Tensor, k: Tensor, v: Tensor, *,
     _no_backward("flash_attention_lse", q, k, v)
     o, lse = _launch(q, k, v, None, causal=causal, window=window,
                      scale=scale, with_lse=True)
-    LAUNCHES["flash_attention_lse"] += 1
+    count_launch(LAUNCHES, "flash_attention_lse")
     return o, lse

@@ -33,6 +33,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, _DTYPES, _on_cpu,
+                                                 count_launch,
                                                  flash_attention_lse,
                                                  tma_unreadable)
 from repro_torch.kernels.ref import NEG_INF, _acc_dtype, _mask, _positions
@@ -183,7 +184,7 @@ def launch_dq(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    count_launch(LAUNCHES, "flash_attention_bwd_dq")
     return dq, dvec
 
 
@@ -208,7 +209,7 @@ def launch_dkv(q: Tensor, k: Tensor, v: Tensor, lse: Tensor, do: Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    count_launch(LAUNCHES, "flash_attention_bwd_dkv")
     return dk, dv
 
 

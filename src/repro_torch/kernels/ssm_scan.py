@@ -26,8 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.flash_attention import (_DTYPES, _no_backward,
-                                                 _on_cpu, grown_scratch,
-                                                 unaligned)
+                                                 _on_cpu, count_launch,
+                                                 grown_scratch, unaligned)
 from repro_torch.kernels.ref import chunked_ssm_scan, pick_block
 
 Tensor = torch.Tensor
@@ -145,5 +145,5 @@ def ssm_scan(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                  _DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ssm_scan_fwd launch failed: CUDA error {err}")
-    LAUNCHES["ssm_scan"] += 1
+    count_launch(LAUNCHES, "ssm_scan")
     return y, s_out

@@ -26,8 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels.flash_attention import (_DTYPES, _no_backward,
-                                                 _on_cpu, grown_scratch,
-                                                 unaligned)
+                                                 _on_cpu, count_launch,
+                                                 grown_scratch, unaligned)
 from repro_torch.kernels.ref import chunked_wkv6, pick_block
 
 Tensor = torch.Tensor
@@ -139,5 +139,5 @@ def wkv6_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
                  int(unaligned(w) is None), _DTYPES[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"wkv6_scan_fwd launch failed: CUDA error {err}")
-    LAUNCHES["wkv6_scan"] += 1
+    count_launch(LAUNCHES, "wkv6_scan")
     return o, s_out

@@ -73,11 +73,17 @@ class ServeRequest:
     result: Optional[Tensor] = None      # on the host, as the wire left it
     # -- decode (autoregressive) requests only --
     max_new_tokens: int = 0              # > 0 marks a decode request
+    tpot_budget_ms: float = 0.0          # per-token SLO after the first
     out_tokens: Optional[list] = None    # generated token ids on completion
 
 
 class PoolDrainingError(RuntimeError):
     """Enqueue refused: the pool was retargeted to batch 0 (draining)."""
+
+
+class PlanRefused(RuntimeError):
+    """``apply_plan`` refused a plan before changing anything: it would
+    remove a pool that still holds work, or orphan a decode pool."""
 
 
 def pool_endpoint(key: tuple) -> str:
@@ -565,6 +571,11 @@ class PoolService:
         # several channels may reach one pool; the pool is one resource,
         # so its ops serialize here
         self._lock = threading.Lock()
+        # rids whose wire items carried the trace-sampling flag: their
+        # exec/decode spans close here, on the pool side of the hop
+        self._traced: set = set()
+        self._dtraced: set = set()            # traced resident decode rids
+        self._pool_tid = pool_endpoint(inst.key)
 
     def handle(self, msg: dict) -> dict:
         try:
@@ -577,12 +588,24 @@ class PoolService:
         req = ServeRequest(client=item["client"], tokens=None,
                            extras=item.get("extras") or None)
         req._rid = item["req_id"]
+        if item.get("trace"):
+            self._traced.add(item["req_id"])
         self.inst.submit(req, torch.as_tensor(item["payload"]))
 
     def _flush_reply(self) -> dict:
+        t0 = time.perf_counter()
+        done = self.inst.flush()
+        dur = (time.perf_counter() - t0) * 1e3
+        rids = [req._rid for req, _ in done]
+        traced = [r for r in rids if r in self._traced]
+        if traced:
+            self._traced.difference_update(traced)
+            self.inst.telemetry.span(
+                "exec", "pool", dur, rid=traced[0], tid=self._pool_tid,
+                args={"rids": traced, "n_batch": len(rids)})
         return {"ok": True,
                 "results": [{"req_id": req._rid, "payload": y}
-                            for req, y in self.inst.flush()]}
+                            for req, y in done]}
 
     def _dispatch(self, msg: dict) -> dict:
         op = msg.get("op")
@@ -609,23 +632,54 @@ class PoolService:
             inst.chips = [int(c) for c in msg["chips"]]
             return {"ok": True}
         if op == "prefill":
-            return {"ok": True, **inst.prefill_export(
-                msg["req_id"], msg["client"],
-                np.asarray(msg["tokens"], np.int32),
-                _sig_tuple(msg.get("sig") or ()))}
+            t0 = time.perf_counter()
+            r = inst.prefill_export(msg["req_id"], msg["client"],
+                                    np.asarray(msg["tokens"], np.int32),
+                                    _sig_tuple(msg.get("sig") or ()))
+            if msg.get("trace") and r.get("exported"):
+                inst.telemetry.span(
+                    "decode/prefill", "pool",
+                    (time.perf_counter() - t0) * 1e3, rid=msg["req_id"],
+                    tid=self._pool_tid,
+                    args={"n_shared": r.get("n_shared", 0)})
+            return {"ok": True, **r}
         if op == "dadmit":
+            t0 = time.perf_counter()
             handoff = msg.get("kv")
             if handoff is not None:
                 # validate on the receiving side of the hop: a mangled
                 # envelope is a FrameError reply, not an arena crash
                 handoff = decode_kv_blocks(handoff)
-            return {"ok": True, **inst.decode_admit(
-                msg["req_id"], msg["client"],
-                np.asarray(msg["tokens"], np.int32), msg["max_new"],
-                _sig_tuple(msg.get("sig") or ()), handoff=handoff)}
+            r = inst.decode_admit(msg["req_id"], msg["client"],
+                                  np.asarray(msg["tokens"], np.int32),
+                                  msg["max_new"],
+                                  _sig_tuple(msg.get("sig") or ()),
+                                  handoff=handoff)
+            if msg.get("trace") and r.get("admitted"):
+                inst.telemetry.span(
+                    "decode/admit", "pool",
+                    (time.perf_counter() - t0) * 1e3, rid=msg["req_id"],
+                    tid=self._pool_tid,
+                    args={"n_shared": r.get("n_shared", 0)})
+                if not r.get("done"):
+                    self._dtraced.add(msg["req_id"])
+            return {"ok": True, **r}
         if op == "dstep":
-            return {"ok": True, **inst.decode_step_batch()}
+            t0 = time.perf_counter()
+            r = inst.decode_step_batch()
+            traced = [ev["rid"] for ev in r["events"]
+                      if ev["rid"] in self._dtraced]
+            if traced:
+                inst.telemetry.span(
+                    "decode/step", "pool",
+                    (time.perf_counter() - t0) * 1e3, rid=traced[0],
+                    tid=self._pool_tid,
+                    args={"rids": traced, "active": r["active"]})
+                self._dtraced.difference_update(
+                    ev["rid"] for ev in r["events"] if ev.get("done"))
+            return {"ok": True, **r}
         if op == "dabort":
+            self._dtraced.discard(msg["req_id"])
             return {"ok": True, "aborted": inst.decode_abort(msg["req_id"])}
         if op == "stats":
             tel = inst.telemetry
@@ -681,12 +735,16 @@ class PoolHandle:
         return self._check(reply)
 
     def submit(self, req_id: int, client: str, payload: Tensor,
-               extras: Optional[dict] = None) -> Optional[tuple]:
+               extras: Optional[dict] = None, *,
+               trace: bool = False) -> Optional[tuple]:
         """Enqueue one payload; returns the measured (nbytes, ms) hop,
         or None when the channel produced no sample for this request
-        (callers then record nothing)."""
+        (callers then record nothing). ``trace`` rides the wire so the
+        pool-side exec span closes on the right hop."""
         msg = {"op": "submit", "req_id": req_id, "client": client,
                "payload": payload, "extras": extras}
+        if trace:
+            msg["trace"] = True
         with self._lock:
             reply = self.channel.request(msg)
             sample = self.channel.stats.samples[-1] \
@@ -704,16 +762,20 @@ class PoolHandle:
     def execute(self, items: list) -> list:
         """Submit a whole batch and flush it in one round trip.
 
-        ``items``: [(req_id, client, payload, extras), ...]. Returns
+        ``items``: [(req_id, client, payload, extras), ...]; an optional
+        fifth element flags a trace-sampled request. Returns
         [(req_id, payload), ...] for everything the flush produced."""
         reply = self._call({"op": "execute", "items": [
-            {"req_id": rid, "client": client, "payload": payload,
-             "extras": extras} for rid, client, payload, extras in items]})
+            {"req_id": it[0], "client": it[1], "payload": it[2],
+             "extras": it[3],
+             **({"trace": True} if len(it) > 4 and it[4] else {})}
+            for it in items]})
         return [(r["req_id"], r["payload"]) for r in reply["results"]]
 
     def decode_admit(self, req_id: int, client: str, tokens,
                      max_new: int, sig: tuple = (), *,
-                     handoff: Optional[dict] = None) -> dict:
+                     handoff: Optional[dict] = None,
+                     trace: bool = False) -> dict:
         """Admit one sequence into the pool's continuous decode batch;
         the reply carries the FIRST generated token (or a soft refusal
         with ``admitted`` False and a reason). ``handoff`` is an encoded
@@ -724,17 +786,20 @@ class PoolHandle:
                "max_new": int(max_new), "sig": list(sig)}
         if handoff is not None:
             msg["kv"] = handoff
+        if trace:
+            msg["trace"] = True
         return self._call(msg)
 
     def prefill_export(self, req_id: int, client: str, tokens,
-                       sig: tuple = ()) -> dict:
+                       sig: tuple = (), *, trace: bool = False) -> dict:
         """Disaggregated prompt prefill on a prefill-role pool; the reply
         carries the first generated token plus the KV-block envelope to
         hand a decode pool (or ``exported`` False with a reason)."""
-        return self._call({"op": "prefill", "req_id": req_id,
-                           "client": client,
-                           "tokens": np.asarray(tokens, np.int32),
-                           "sig": list(sig)})
+        msg = {"op": "prefill", "req_id": req_id, "client": client,
+               "tokens": np.asarray(tokens, np.int32), "sig": list(sig)}
+        if trace:
+            msg["trace"] = True
+        return self._call(msg)
 
     def decode_step(self) -> dict:
         """Advance the decode batch one iteration; returns events plus
@@ -756,6 +821,9 @@ class PoolHandle:
 
     def stats(self) -> dict:
         return self._call({"op": "stats"})
+
+    def queue_len(self) -> int:
+        return int(self.stats()["queue_len"])
 
     def close(self) -> None:
         self.channel.close()
@@ -876,6 +944,10 @@ class GraftExecutor:
             handle.bind(list(chips))
             self._bound[key] = chips
 
+    def chips_of(self, key: tuple) -> list:
+        """Chip index per instance of pool ``key`` (empty pre-placement)."""
+        return self.placement.chips_of(key) if self.placement else []
+
     def apply_plan(self, new_plan: ExecutionPlan) -> PlanDiff:
         """Transition the live deployment to ``new_plan``. Pools whose
         (model, start, end) identity survives keep their queue."""
@@ -889,7 +961,7 @@ class GraftExecutor:
             q = int(s["queue_len"])
             dec = int(s.get("decode_active", 0) or 0)
             if q or dec:
-                raise RuntimeError(
+                raise PlanRefused(
                     f"cannot remove pool {a.key}: {q} queued requests, "
                     f"{dec} resident decode streams — drain before "
                     f"apply_plan()")
@@ -901,7 +973,7 @@ class GraftExecutor:
                            if sp.role == "decode"
                            and pool_range(k) == pool_range(a.key)]
                 if orphans and pool_range(a.key) not in feeders:
-                    raise RuntimeError(
+                    raise PlanRefused(
                         f"cannot remove pool {a.key}: decode pool(s) "
                         f"{orphans} would be left with no prefill "
                         "feeder over that range")
@@ -943,6 +1015,13 @@ class GraftExecutor:
         h = self.fragment_fn(0, p)(self.params, inputs=toks,
                                    extras=req.extras)
         return h[0]
+
+    def _wire_extras(self, req: ServeRequest) -> Optional[dict]:
+        """A request's extras as they cross a pool hop (tensors and
+        arrays both frame; None when the request has none)."""
+        if req.extras is None:
+            return None
+        return dict(req.extras)
 
     def serve(self, requests: list[tuple[ServeRequest, int]]
               ) -> list[ServeRequest]:
@@ -989,10 +1068,19 @@ class GraftExecutor:
                         del stage_of[rid]
         return [r for r, _ in requests]
 
+    # --------------------------------------------------- server plumbing
     def next_rid(self) -> int:
         """Allocate a fresh request id (shared with the serve() path so
-        ids stay unique when decode streams use this executor too)."""
+        ids stay unique when a GraftServer drives this executor)."""
         return next(self._rid)
+
+    def client_chain(self, client: str) -> list:
+        """The client's stage chain as live PoolHandles (deploy order)."""
+        return list(self._chains[client])
+
+    def chain_keys(self, client: str) -> list:
+        """The client's stage chain as PoolKeys."""
+        return [h.key for h in self._chains[client]]
 
     def route_table(self) -> dict:
         """client -> [PoolKey, ...] for every routed client."""
@@ -1003,21 +1091,51 @@ class GraftExecutor:
         """PoolKey -> PoolSpec of the currently deployed plan."""
         return dict(self._pools)
 
+    def pool_role(self, key: tuple) -> str:
+        """Role of a deployed pool (``both`` when unannotated)."""
+        sp = self._pools.get(key)
+        return sp.role if sp is not None else "both"
+
     def decode_pool_keys(self) -> list:
         """Keys of the deployed decode-role pools (handoff receivers)."""
         return [k for k, sp in self._pools.items() if sp.role == "decode"]
 
-    def prefill_pool_keys(self, rng: tuple) -> list:
+    def prefill_pool_keys(self, rng: Optional[tuple] = None) -> list:
         """Keys of the pools that can run a disaggregated prefill for
-        block range ``rng`` (``(model, start, end)``): prefill-role
-        first, then dual-role."""
+        block range ``rng`` (``(model, start, end)``; None = any range):
+        prefill-role first, then dual-role."""
         out = [k for k, sp in self._pools.items()
                if sp.role in ("prefill", "both")
-               and pool_range(k) == tuple(rng)]
+               and (rng is None or pool_range(k) == tuple(rng))]
         return sorted(out, key=lambda k: self._pools[k].role != "prefill")
 
     def handle(self, key: tuple) -> PoolHandle:
         return self._handles[key]
+
+    def open_handle(self, key: tuple) -> PoolHandle:
+        """A NEW channel to pool ``key``: a server opens its own so its
+        uplink submits do not serialize on the shared deploy handle; the
+        pool itself serializes execution in PoolService."""
+        if key not in self._handles:
+            raise KeyError(f"no pool {key}")
+        return PoolHandle(key, self.transport.connect(pool_endpoint(key)))
+
+    def record_uplink(self, client: str, nbytes: float, ms: float) -> None:
+        """Log one measured first-hop transfer (the server's batch-close
+        submit path records here; serve() does it inline)."""
+        self.uplink.append((client, nbytes, ms))
+
+    def drain_uplink(self) -> list:
+        """Return and clear the (client, nbytes, ms) first-hop samples —
+        what ``ServingController.ingest_uplink`` consumes. Safe against
+        concurrent ``record_uplink`` from driver threads: samples are
+        popped one by one, never dropped by a clear() race."""
+        out = []
+        while True:
+            try:
+                out.append(self.uplink.popleft())
+            except IndexError:
+                return out
 
     # ------------------------------------------------------------- stats
     def drain(self) -> int:
@@ -1034,6 +1152,26 @@ class GraftExecutor:
     def pool_stats(self) -> dict:
         """PoolKey -> live pool stats (pid, queue_len, n_compiles, ...)."""
         return {key: h.stats() for key, h in self._handles.items()}
+
+    def merge_telemetry(self, into=None) -> int:
+        """Poll every pool's stats op and fold snapshots of registries
+        other than ``into``'s process into it (default: this executor's
+        registry). In-process pools share the registry already and are
+        skipped, so nothing counts twice. Returns the number of snapshots
+        merged."""
+        into = into if into is not None else self.telemetry
+        if not into.enabled:
+            return 0
+        n = 0
+        for key, s in self.pool_stats().items():
+            snap = s.get("telemetry")
+            if not snap or snap.get("process") == into.process:
+                continue
+            label = pool_endpoint(key)[len("pool/"):]
+            into.merge_snapshot(snap, source=label,
+                                prefix=f"pool/{label}/")
+            n += 1
+        return n
 
     @property
     def n_stage_pools(self) -> int:

@@ -246,8 +246,8 @@ def drive_decode(ex, prompts, max_new: int, *, disagg: bool = False,
     full block range.
 
     It serves tests and smokes and is not the server: it has no
-    shed policy and no SLO logic (TTFT/TPOT deadlines), which belong to
-    the server runtime's slice.
+    shed policy and no SLO logic (TTFT/TPOT deadlines), which
+    ``GraftServer`` adds (``run_decode_smoke``, ``run_disagg_smoke``).
 
     Returns ``{"tokens": [list or None per stream (None = aborted)],
     "aborted": stream indices aborted, "steps": batch steps,
@@ -328,3 +328,145 @@ def drive_decode(ex, prompts, max_new: int, *, disagg: bool = False,
     return {"tokens": out, "aborted": aborted, "steps": steps,
             "mid_admits": mid,
             "handoffs": handoffs, "admit_s": t_admit, "step_s": t_step}
+
+
+# ---------------------------------------------------------------------------
+# the server's decode smokes (scripts/ci_torch.sh)
+# ---------------------------------------------------------------------------
+
+def _decode_prompt(cfg, seed: int, i: int, n_clients: int,
+                   seq_len: int) -> np.ndarray:
+    """Half the streams share a per-client prompt (the paged cache's
+    prefix sharing, across the hop under disaggregation), half are
+    fresh."""
+    s = seed * 131 + i if i % 2 == 0 else seed * 977 + (i % n_clients)
+    return np.random.RandomState(s).randint(
+        0, cfg.vocab_size, seq_len).astype(np.int32)
+
+
+def _serve_decode_smoke(tag: str, *, disagg: bool, arch: str,
+                        n_clients: int, n_requests: int, seq_len: int,
+                        max_new: int, decode_ctx: int, seed: int,
+                        budget_ms: float, tpot_ms: float, log,
+                        device) -> dict:
+    """Submit ``n_requests`` decode streams to a ``GraftServer`` over a
+    single-pool (or disaggregated) decode plan, drain it, and hold every
+    stream against the unbatched reference."""
+    import time
+
+    from repro_torch.serving.executor import GraftExecutor, ServeRequest
+    from repro_torch.serving.server import GraftServer
+    from repro_torch.serving.transport import InProcessTransport
+
+    say = log if log is not None else (lambda *_: None)
+    cfg, book, params = smoke_setup(arch, seq_len=seq_len, seed=seed,
+                                    device=device)
+    frags = smoke_fragments(cfg, n_clients, rate=30.0, seed=seed)
+    plan = (disagg_plan if disagg else decode_plan)(
+        cfg, book, frags, batch=max(n_clients, 2))
+    # small blocks so the smoke prompts span FULL blocks — the prefix
+    # index only shares full (or clean-partial) blocks, so default-sized
+    # blocks would swallow the whole prompt into one unshareable partial
+    ex = GraftExecutor(plan, params, cfg, transport=InProcessTransport(),
+                       decode_ctx=decode_ctx, kv_block_tokens=4,
+                       decode_disagg=disagg, device=params["embed"].device)
+    server = GraftServer(ex, book=book).start()
+    served: list = []
+    say(f"[{tag}] {cfg.name} on {ex.device}: {n_requests} streams x "
+        f"{max_new} tokens over {n_clients} clients, decode_ctx="
+        f"{decode_ctx}" + (", prefill pool -> KV frame -> decode pool"
+                           if disagg else ""))
+    t0 = time.monotonic()
+    try:
+        for i in range(n_requests):
+            f = frags[i % len(frags)]
+            req = ServeRequest(client=f.client,
+                               tokens=_decode_prompt(cfg, seed, i,
+                                                     len(frags), seq_len),
+                               max_new_tokens=max_new,
+                               tpot_budget_ms=tpot_ms)
+            server.submit(req, 0, budget_ms)
+            served.append((req, max_new))
+            time.sleep(0.01)
+        if not server.join(timeout=600.0):
+            raise RuntimeError(f"{tag} never drained")
+        report = server.report()
+        kv = {s.get("role", "both"): s["kv"]
+              for s in ex.pool_stats().values() if s.get("kv")}
+    finally:
+        server.stop(drain=False, timeout=10.0)
+        ex.close()
+    report["wall_s"] = time.monotonic() - t0
+    done = [(r, m) for r, m in served if r.out_tokens is not None]
+    try:
+        check_decode_against_reference(cfg, params, done)
+        report["numerics_ok"] = True
+    except AssertionError as e:
+        report["numerics_ok"] = False
+        report["numerics_error"] = str(e)[:500]
+    report["numerics_checked"] = len(done)
+    if disagg:
+        report["pool_kv"] = kv
+    else:
+        report["kv"] = kv.get("both", {})
+    return report
+
+
+def run_decode_smoke(*, arch: str = DEFAULT_ARCH, n_clients: int = 3,
+                     n_requests: int = 12, seq_len: int = 12,
+                     max_new: int = 5, decode_ctx: int = 64,
+                     seed: int = 0, budget_ms: float = 4000.0,
+                     tpot_ms: float = 2000.0, log=None,
+                     device=None) -> dict:
+    """Blocking CI smoke: run the event-driven server's continuous-
+    batching decode path end-to-end in-process and check every stream's
+    tokens against the unbatched reference. Returns the server report
+    (with ``numerics_ok``); raises on a stranded run. ``device`` None
+    runs on the card and raises without one."""
+    say = log if log is not None else (lambda *_: None)
+    report = _serve_decode_smoke(
+        "decode-smoke", disagg=False, arch=arch, n_clients=n_clients,
+        n_requests=n_requests, seq_len=seq_len, max_new=max_new,
+        decode_ctx=decode_ctx, seed=seed, budget_ms=budget_ms,
+        tpot_ms=tpot_ms, log=log, device=device)
+    say(f"[decode-smoke] served={report['decode_served']} "
+        f"local={report['decode_local']} "
+        f"prefix_hits={report['kv'].get('prefix_hits', 0)} "
+        f"numerics_ok={report['numerics_ok']} "
+        f"({report['wall_s']:.1f}s)")
+    return report
+
+
+def run_disagg_smoke(*, arch: str = DEFAULT_ARCH, n_clients: int = 3,
+                     n_requests: int = 10, seq_len: int = 12,
+                     max_new: int = 5, decode_ctx: int = 64,
+                     seed: int = 0, budget_ms: float = 4000.0,
+                     tpot_ms: float = 2000.0, log=None,
+                     device=None) -> dict:
+    """Blocking CI smoke: the disaggregated serve loop end-to-end.
+
+    A prefill-role pool and a decode-role pool over the same range; the
+    server's two-phase admit runs prompt prefill on one and hands the KV
+    blocks to the other over the transport. Every stream must match the
+    unbatched reference token-for-token AND at least one cross-pool KV
+    handoff must actually have happened (otherwise the split silently
+    degenerated to decode-pool self-prefill). Raises on a stranded run.
+    ``device`` None runs on the card and raises without one."""
+    say = log if log is not None else (lambda *_: None)
+    report = _serve_decode_smoke(
+        "disagg-smoke", disagg=True, arch=arch, n_clients=n_clients,
+        n_requests=n_requests, seq_len=seq_len, max_new=max_new,
+        decode_ctx=decode_ctx, seed=seed, budget_ms=budget_ms,
+        tpot_ms=tpot_ms, log=log, device=device)
+    if report["kv_handoffs"] < 1:
+        raise RuntimeError(
+            "disagg smoke: no cross-pool KV handoff happened "
+            f"(kv_handoffs={report['kv_handoffs']}, "
+            f"decode_local={report['decode_local']})")
+    say(f"[disagg-smoke] served={report['decode_served']} "
+        f"handoffs={report['kv_handoffs']} "
+        f"handoff_ms={report['kv_handoff_ms']:.2f} "
+        f"local={report['decode_local']} "
+        f"numerics_ok={report['numerics_ok']} "
+        f"({report['wall_s']:.1f}s)")
+    return report

@@ -335,10 +335,13 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro']\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
-        "print(bad)\n")
+        "print(bad)\n"
+        "print(all(m in sys.modules for m in ('repro_torch.serving.server', "
+        "'repro_torch.serving.controller')))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
-    n, bad = out.stdout.strip().splitlines()
-    assert int(n) >= 30, out.stdout
+    n, bad, runtime = out.stdout.strip().splitlines()
+    assert int(n) >= 65, out.stdout
     assert bad == "[]", bad
+    assert runtime == "True", "the server runtime was not imported"

@@ -645,3 +645,65 @@ def test_kernels_without_backward_refuse_inputs_that_require_grad(cuda):
         with torch.no_grad():
             call(x.clone().requires_grad_(True))
         call(x)
+
+
+# ------------------------------------------------------------- the server
+
+def test_server_one_shot_drivers_beside_decode_on_one_card(cuda):
+    """The event-driven server on the card: one-shot clients at three
+    partition points (their pool drivers and the ingest threads' mobile
+    parts launch kernels) while a decode client streams through the
+    continuous batch on its own driver thread. Every thread launches on
+    the device's one stream, which the decode kernel's shared scratch
+    and tickets assume: the decode tokens must equal the unbatched
+    reference exactly, and the one-shot results the monolithic forward
+    (float32 ``atol=5e-5, rtol=1e-3``)."""
+    import time
+
+    from repro_torch.core import Fragment, GraftPlanner
+    from repro_torch.serving import (GraftExecutor, GraftServer,
+                                     ServeRequest)
+    from repro_torch.serving.smoke import (check_against_monolithic,
+                                           reference_decode, smoke_setup)
+
+    cfg, book, params = smoke_setup("qwen3-1.7b", n_layers=4)
+    frags = [Fragment(cfg.name, p, 4000.0, 30.0, client=f"c{p}")
+             for p in (1, 2, 3)] + [Fragment(cfg.name, 0, 4000.0, 30.0,
+                                             client="dec")]
+    rng = np.random.RandomState(0)
+    da.reset_launches()
+    fa.reset_launches()
+    ex = GraftExecutor(GraftPlanner(book).plan(frags), params, cfg,
+                       decode_ctx=96, kv_blocks=64, kv_block_tokens=8)
+    server = GraftServer(ex, book=book).start()
+    oneshot, streams = [], []
+    try:
+        for i in range(6):
+            toks = rng.randint(0, cfg.vocab_size, int(rng.randint(9, 40))
+                               ).astype(np.int32)
+            req = ServeRequest(client="dec", tokens=toks, max_new_tokens=12)
+            server.submit(req, 0, 4000.0)
+            streams.append(req)
+            for f in frags[:3]:
+                r = ServeRequest(client=f.client, tokens=rng.randint(
+                    0, cfg.vocab_size, int(rng.randint(16, 64)))
+                    .astype(np.int32))
+                server.submit(r, f.p, f.t)
+                oneshot.append((r, f.p))
+            time.sleep(0.005)
+        assert server.join(timeout=300.0), "the server never drained"
+        rep = server.report()
+    finally:
+        server.stop(drain=False, timeout=10.0)
+        ex.close()
+    torch.cuda.synchronize()
+    assert rep["decode_local"] == 0 and rep["local_finishes"] == 0
+    assert rep["decode_served"] == len(streams)
+    assert rep["served"] == len(streams) + len(oneshot)
+    assert da.LAUNCHES["decode_attention"] > 0
+    assert fa.LAUNCHES["flash_attention"] > 0            # packed pools
+    assert fa.LAUNCHES["flash_attention_lse"] > 0        # mobile parts
+    for req in streams:
+        assert req.out_tokens == reference_decode(cfg, params, req.tokens,
+                                                  12)
+    check_against_monolithic(cfg, params, oneshot)

@@ -194,6 +194,24 @@ def test_plain_bf16_matches_jax_bf16():
 
 # ------------------------------------------------------ wrapper contract
 
+def test_launch_counts_are_exact_across_threads():
+    """The server's pool-driver and ingest threads count launches at
+    once; no increment may be lost."""
+    import threading
+    counts = {"k": 0}
+
+    def bump():
+        for _ in range(20_000):
+            tfa.count_launch(counts, "k")
+
+    threads = [threading.Thread(target=bump) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert counts == {"k": 160_000}
+
+
 def test_cpu_tensors_take_the_plain_version_uncounted():
     q, k, v = _t(*_qkv(8, 1, 16, 16, 2, 1, 32))
     before = dict(tfa.LAUNCHES)
