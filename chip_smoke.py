@@ -85,7 +85,27 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    and TPOT p50/p99, mean batch, replans and their apply times) are
    printed beside the card's name and power limit, checked for nothing
    but finite results and the control loop's state.
-6. hybrid  — full-width hymba-1.5b (32 layers: attention with window
+6. remote  — full-width qwen3-1.7b in float32 with TF32 off on pool
+   workers: a ``RemoteExecutor`` over a ``SocketTransport`` puts each
+   pool of the planner's plan for clients at p = 3, 9 and 17 in a worker
+   process on the card (each worker loads only its block range's
+   parameters; every worker's spawn and load time is printed), serves
+   two waves, applies ``mixed_depth_plan`` cut at 17 and serves two more:
+   every result must match the forward, the pool kept across the replan
+   must keep its worker's pid, and ``flash_attention`` must launch in the
+   workers (their own counters, read over the stats op) and
+   ``flash_attention_lse`` here (the mobile parts). Then the server
+   phase's loop through ``run_serve_loop(mode="socket", frontends=2,
+   router="weighted")``, held to the server phase's checks, with the
+   three kernels launching inside the workers and both front-ends
+   serving. Then ``python -m repro_torch.launch.serve`` as subprocesses
+   (``--execute socket``; ``--serve-loop --execute socket
+   --serve-seconds 2 --clients 2 --frontends 2``), which must exit 0,
+   beside the route smoke (at least one steal, nothing shed, numerics
+   exact). Then the fleet loop in bfloat16 and ``measure_layer_costs``
+   (per-block alpha and beta beside the analytic cost model's), printed
+   only.
+7. hybrid  — full-width hymba-1.5b (32 layers: attention with window
    1024 beside 50 SSM heads of 64 x 16 state) in float32: the serve
    phase's path on the pad-to-bucket pools (hybrid is not packable), six
    prompts of 128-1536 tokens, one past the window; then the decode
@@ -93,13 +113,13 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    reports no hit and the decode pool takes no handoff blocks (it
    recomputes each prompt). ``ssm_scan`` must launch on the serve path
    and in the decode admissions.
-7. ssm     — full-width rwkv6-7b (32 layers, 64 WKV heads of 64) in
+8. ssm     — full-width rwkv6-7b (32 layers, 64 WKV heads of 64) in
    float32 through the serve phase's path (pad-to-bucket pools, prompts
    of 128-512 tokens); then one prompt's ``prefill`` and 8 teacher-forced
    ``decode_step``s held against the forward at those positions (the
    WKV state the scan kernel hands to decode); then bfloat16 waves, the
    last one profiled. ``wkv6_scan`` must launch.
-8. train   — full-width qwen3-1.7b (28 layers, random weights) on the
+9. train   — full-width qwen3-1.7b (28 layers, random weights) on the
    ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
    off: the loss and every gradient leaf through the kernels against
    autograd of the plain attention (``ops.attention`` swapped here
@@ -115,8 +135,9 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 Each model is freed before the next one loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model,
-the float32 server loop and its disaggregated streams,
-and the float32 AdamW steps and timed bfloat16 steps, each path's
+the float32 server loop and its disaggregated streams, the float32
+remote executor's waves and fleet loop (launches in the workers and in
+this process), and the float32 AdamW steps and timed bfloat16 steps, each path's
 counters zeroed just before it and read just after.
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line the result:
@@ -1699,7 +1720,286 @@ def server_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: training on the main path
+# phase 6: pool workers on the card, the fleet, the serving launcher
+# ---------------------------------------------------------------------------
+
+# the executor's clients; the re-aligned plan cuts at the last of them,
+# so its pool survives the replan in its worker
+REMOTE_POINTS = (3, 9, 17)
+REMOTE_FRONTENDS = 2
+CLI_TIMEOUT_S = 300
+
+
+def indented(*args) -> None:
+    print("   ", *args, flush=True)
+
+
+def print_spawns(spawn_log, label) -> None:
+    for key, spawn_s, init_s, nbytes in spawn_log:
+        print(f"    {label} worker for pool {key[1:]}: spawn {spawn_s:.2f} s, "
+              f"init {init_s:.2f} s ({nbytes / 2**30:.2f} GiB of parameters)")
+
+
+def remote_executor_check(cfg, book, params, device) -> dict:
+    """``RemoteExecutor`` on the card: one worker per pool of the
+    planner's plan, two waves, a re-aligned plan, two more waves; every
+    result against the forward. Returns the launches on this path: the
+    workers' (pool execution) plus this process's (mobile parts)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Fragment, GraftPlanner
+    from repro_torch.serving import RemoteExecutor, SocketTransport
+    from repro_torch.serving.smoke import mixed_depth_plan
+
+    rng = np.random.RandomState(4)
+    frags = [Fragment(cfg.name, p, float(40.0 + 40.0 * rng.rand()), 30.0,
+                      client=f"c{i}") for i, p in enumerate(REMOTE_POINTS)]
+    s = REMOTE_POINTS[-1]
+    t0 = time.perf_counter()
+    reset_launches()                        # the remote path starts here
+    with RemoteExecutor(
+            GraftPlanner(book).plan(frags), params, cfg,
+            SocketTransport(max_frame_bytes=MAX_FRAME_BYTES),
+            device=device) as rex:
+        print(f"  executor: {rex.n_stage_pools} workers up in "
+              f"{time.perf_counter() - t0:.1f} s")
+        print_spawns(rex.spawn_log, "fp32")
+        rex.kernel_launches(reset=True)     # ... and in the workers here
+        pids1 = rex.worker_pids()
+        if os.getpid() in pids1.values() or \
+                len(set(pids1.values())) != rex.n_stage_pools:
+            fail(f"pools are not one worker process each: {pids1}")
+        waves = []
+        for i in range(2):
+            waves.append(make_wave(cfg, frags, rng))
+            serve_wave(rex, waves[-1], f"remote wave {i + 1} (planner plan)")
+        n_spawned = len(rex.spawn_log)
+        t1 = time.perf_counter()
+        diff = rex.apply_plan(mixed_depth_plan(cfg, book, frags, s=s,
+                                               batch=8))
+        print(f"  apply_plan: kept {diff.n_kept}, added "
+              f"{len(diff.by_kind('add'))}, removed "
+              f"{len(diff.by_kind('remove'))} in "
+              f"{time.perf_counter() - t1:.1f} s")
+        print_spawns(rex.spawn_log[n_spawned:], "fp32 (replan)")
+        pids2 = rex.worker_pids()
+        kept = set(pids1) & set(pids2)
+        if not kept or any(pids1[k] != pids2[k] for k in kept):
+            fail(f"no pool kept its worker across the replan: {pids1} -> "
+                 f"{pids2}")
+        for i in range(2):
+            waves.append(make_wave(cfg, frags, rng))
+            serve_wave(rex, waves[-1], f"remote wave {i + 3} (re-aligned)")
+        torch.cuda.synchronize()
+        workers = rex.kernel_launches()
+        uplink = rex.drain_uplink()
+    parent = read_launches()                # ... and ends here
+    print(f"  kept workers {sorted(k[1:] for k in kept)} (pids "
+          f"{sorted(pids2[k] for k in kept)}); kernel launches in the "
+          f"workers {workers}, in this process {parent}")
+    for client, nbytes, ms in uplink[:6]:
+        print(f"    uplink {client}: {nbytes} B in {ms:.2f} ms")
+    # the workers run the packed pools (row 1); this process runs the
+    # mobile parts [0, p), the unsegmented forward (row 2)
+    if workers["flash_attention"] < 1 or parent["flash_attention_lse"] < 1:
+        fail(f"the forward kernels did not launch on the remote path: "
+             f"workers {workers}, parent {parent}")
+    for i, wave in enumerate(waves):
+        check_results(cfg, params, wave, f"remote wave {i + 1}")
+    return {k: workers[k] + parent[k] for k in workers}
+
+
+def fleet_loop(cfg, book, params, telemetry, seconds) -> dict:
+    """The server phase's loop through ``GraftFleet`` front-ends over a
+    ``RemoteExecutor``; returns its report, unchecked."""
+    from repro_torch.core import Fragment
+    from repro_torch.serving import run_serve_loop
+    frags = [Fragment(cfg.name, p, SERVER_BUDGET_MS, q, client=f"c{i}")
+             for i, (p, q) in enumerate(zip(SERVER_POINTS, SERVER_RATES))]
+    return run_serve_loop(
+        setup=(cfg, book, params), frags=frags, seconds=seconds,
+        seed=0, shift_frac=0.5, control_period_ms=SERVER_PERIOD_MS,
+        prompt_lens=SERVER_PROMPTS, decode_max_new=MAX_NEW,
+        check_numerics=False, telemetry=telemetry, mode="socket",
+        frontends=REMOTE_FRONTENDS, router="weighted", log=indented)
+
+
+def print_fleet_report(rep, tel, label) -> None:
+    print_server_report(rep, tel, label)
+    up = tel.histogram("server/uplink_bytes")
+    print(f"    fleet: front-ends {rep['frontends']}, steals "
+          f"{rep['steals']}, cross-dispatched {rep['cross_dispatched']}; "
+          f"uplink bytes per hop (count, p50, p99) ({up.count()}, "
+          f"{up.quantile(0.5):.0f}, {up.quantile(0.99):.0f})")
+
+
+def start_cli(args) -> tuple:
+    """Start ``python -m repro_torch.launch.serve ARGS`` on the card;
+    :func:`finish_cli` waits for it."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m",
+                             "repro_torch.launch.serve", *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    return args, proc, time.perf_counter()
+
+
+def finish_cli(run) -> None:
+    """Fail unless the launcher exited 0; print the end of its report."""
+    args, proc, t0 = run
+    try:
+        out, err = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"launch.serve {' '.join(args)} ran past {CLI_TIMEOUT_S} s")
+    print(f"  launch.serve {' '.join(args)}: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in out.strip().splitlines()[-6:]:
+        print(f"    {line}")
+    if proc.returncode != 0:
+        fail(f"launch.serve {' '.join(args)} exited {proc.returncode}: "
+             f"{(out + err)[-2000:]}")
+
+
+def remote_phase(device) -> dict:
+    """Pool workers on the card under the executor and under the fleet,
+    then the serving launcher; returns the kernels' launch counts over
+    the float32 remote paths (the executor's waves, then the fleet
+    loop), the workers' and this process's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import arch_layer_costs
+    from repro_torch.core.costmodel import (COMPUTE_EFF, HBM_BW, MEMORY_EFF,
+                                            PEAK_FLOPS)
+    from repro_torch.core.measured import measure_layer_costs
+    from repro_torch.serving.server import check_serve_report
+    from repro_torch.serving.smoke import run_route_smoke, smoke_setup
+    from repro_torch.serving.telemetry import Telemetry
+
+    t_phase = time.perf_counter()
+    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
+                                    dtype="float32", seq_len=512,
+                                    device=device)
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}; executor clients at "
+          f"{REMOTE_POINTS}, re-aligned at {REMOTE_POINTS[-1]}")
+    launches = remote_executor_check(cfg, book, params, device)
+
+    reset_launches()                        # the fleet path starts here
+    t0 = time.perf_counter()
+    tel = Telemetry(process="serve")
+    rep = fleet_loop(cfg, book, params, tel, SERVER_SECONDS)
+    torch.cuda.synchronize()
+    parent = read_launches()                # ... and ends here
+    workers = rep["worker_launches"]
+    print(f"  fp32 fleet loop: {time.perf_counter() - t0:.1f} s with spawns, "
+          f"warm-up and drain; kernel launches in the workers {workers}, "
+          f"in this process {parent}")
+    print_fleet_report(rep, tel, "fp32 fleet loop")
+    if not rep["drained"]:
+        fail("the fleet did not drain")
+    if rep["controller_replans"] < 1 or rep["timer_replans"] < 1:
+        fail("no replan applied under traffic")
+    check_control(rep, "fp32 fleet loop")
+    if rep["shed"] or rep["local_finishes"] or rep["decode_local"]:
+        fail(f"shed {rep['shed']}, local finishes {rep['local_finishes']}, "
+             f"decode local {rep['decode_local']}: every request must be "
+             "served by the workers")
+    if not all(workers[n] > 0 for n in ("flash_attention",
+                                        "flash_attention_lse",
+                                        "decode_attention")):
+        fail(f"a forward or decode kernel never launched in the workers: "
+             f"{workers}")
+    if sum(1 for fe in rep["frontends"].values() if fe["served"]) \
+            != REMOTE_FRONTENDS:
+        fail(f"not every front-end served: {rep['frontends']}")
+    if any(r.result is None for r, _ in rep["requests"]):
+        fail("a one-shot request got no result")
+    check_serve_report(cfg, params, rep, max_check=SERVER_CHECK)
+    if not rep["numerics_ok"]:
+        fail(f"fp32 fleet loop: a result is off the monolithic forward: "
+             f"{rep['numerics_error']}")
+    streams = rep["decoded"]
+    if not streams or not rep.get("decode_numerics_ok") or \
+            rep["decode_checked"] != len(streams):
+        fail(f"fp32 fleet loop: {rep.get('decode_checked', 0)} of "
+             f"{len(streams)} decode streams checked, or one differs from "
+             "the reference")
+    print(f"  fp32 fleet loop: {rep['numerics_checked']} one-shot results "
+          f"match the monolithic forward (largest |diff| "
+          f"{rep['numerics_max_abs']:.3e}); {len(streams)} decode streams "
+          f"equal the unbatched reference token for token (smallest "
+          f"margin {rep['decode_min_margin']:.4g})")
+    for k in launches:
+        launches[k] += workers[k] + parent[k]
+    del params, rep
+    free_device()
+
+    # the launcher's two modes as subprocesses beside the route smoke
+    t0 = time.perf_counter()
+    clis = [start_cli(["--arch", "qwen3-1.7b", "--execute", "socket"]),
+            start_cli(["--serve-loop", "--execute", "socket",
+                       "--serve-seconds", "2", "--clients", "2",
+                       "--frontends", "2"])]
+    route = run_route_smoke(device=device, log=indented)
+    for run in clis:
+        finish_cli(run)
+    if not (route["numerics_ok"] and route["steals"] >= 1
+            and route["shed"] == 0):
+        fail(f"route smoke: steals {route['steals']}, shed "
+             f"{route['shed']}, numerics {route.get('numerics_error', 'ok')}")
+    print(f"  launcher and route smoke: {time.perf_counter() - t0:.1f} s")
+
+    # bfloat16, printed only
+    cfg16, book16, params16 = smoke_setup("qwen3-1.7b", full_width=True,
+                                          dtype="bfloat16", seq_len=512,
+                                          device=device)
+    tel = Telemetry(process="serve")
+    rep16 = fleet_loop(cfg16, book16, params16, tel, SERVER_SECONDS)
+    print_fleet_report(rep16, tel, "bf16 fleet loop")
+    check_control(rep16, "bf16 fleet loop")
+    dec = rep16.get("decode", {})
+    print(f"  bf16 fleet (host clock; {smi_line()}): latency p50 "
+          f"{rep16['p50_ms']:.1f} ms, p99 {rep16['p99_ms']:.1f} ms; decode "
+          f"TTFT p50 {dec.get('ttft_p50_ms', float('nan')):.1f} ms, p99 "
+          f"{dec.get('ttft_p99_ms', float('nan')):.1f} ms, TPOT p50 "
+          f"{dec.get('tpot_p50_ms', float('nan')):.1f} ms, p99 "
+          f"{dec.get('tpot_p99_ms', float('nan')):.1f} ms; steals "
+          f"{rep16['steals']}, cross-dispatched {rep16['cross_dispatched']}")
+    for req, _ in rep16["requests"]:
+        if req.result is None or not torch.isfinite(req.result.float()).all():
+            fail(f"bf16 fleet loop: {req.client} result missing or not "
+                 "finite")
+    measured = measure_layer_costs(cfg16, params16, seq_len=128,
+                                   batches=(1, 4), reps=3)
+    analytic = arch_layer_costs(cfg16, seq_len=128)
+    alpha = measured.weight_bytes / (HBM_BW * MEMORY_EFF) * 1e3
+    beta = measured.flops_per_item / (PEAK_FLOPS * COMPUTE_EFF) * 1e3
+    a_alpha = analytic.weight_bytes / (HBM_BW * MEMORY_EFF) * 1e3
+    a_beta = analytic.flops_per_item / (PEAK_FLOPS * COMPUTE_EFF) * 1e3
+    print(f"  measure_layer_costs (bf16, 128 tokens, batches 1 and 4; "
+          f"{smi_line()}): per block ms, measured alpha / beta against the "
+          "analytic cost model's")
+    for l in sorted({0, 1, cfg16.n_layers // 2, cfg16.n_layers - 1}):
+        print(f"    block {l}: alpha {alpha[l]:.4f} (analytic "
+              f"{a_alpha[l]:.4f}), beta {beta[l]:.4f} (analytic "
+              f"{a_beta[l]:.4f})")
+    print(f"    all {cfg16.n_layers} blocks: alpha mean {np.mean(alpha):.4f} "
+          f"(min {np.min(alpha):.4f}, max {np.max(alpha):.4f}; analytic "
+          f"{np.mean(a_alpha):.4f}), beta mean {np.mean(beta):.4f} (min "
+          f"{np.min(beta):.4f}, max {np.max(beta):.4f}; analytic "
+          f"{np.mean(a_beta):.4f})")
+    del params16
+    free_device()
+    print(f"  remote phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training on the main path
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 2, 512
@@ -2065,8 +2365,8 @@ def tensor_core_check(logs: dict) -> None:
                 fail(f"{f} spills registers: {u}")
 
 
-PHASES = ("kernels", "timing", "serve", "decode", "server", "hybrid", "ssm",
-          "train")
+PHASES = ("kernels", "timing", "serve", "decode", "server", "remote",
+          "hybrid", "ssm", "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -2145,6 +2445,10 @@ def main() -> int:
         print("== server")
         free_device()
         runs.append(server_phase(device))
+    if "remote" in phases:
+        print("== remote")
+        free_device()
+        runs.append(remote_phase(device))
     if "hybrid" in phases:
         print("== hybrid")
         free_device()
@@ -2175,8 +2479,9 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s: no record")
         return 0
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
-    print(f"  launches per path (serve, decode, server, hybrid serve, hybrid "
-          f"decode, ssm serve, fp32 train, bf16 train): {runs}")
+    print(f"  launches per path (serve, decode, server, remote, hybrid "
+          f"serve, hybrid decode, ssm serve, fp32 train, bf16 train): "
+          f"{runs}")
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
     for name, m in (("ssm_scan", ss), ("wkv6_scan", wk)):

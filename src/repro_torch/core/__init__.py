@@ -10,6 +10,7 @@ from repro_torch.core.repartition import (realign, GroupPlan, SoloPlan,
 from repro_torch.core.planner import GraftPlanner, ExecutionPlan
 from repro_torch.core.plandiff import (PoolSpec, PoolAction, PlanDiff,
                                        plan_pools, diff_plans, apply_diff)
+from repro_torch.core.baselines import plan_gslice, plan_static, plan_optimal
 from repro_torch.core.placement import (place, place_pools, migrate,
                                         Placement, MigrationAction)
 
@@ -19,6 +20,7 @@ __all__ = [
     "merge", "group_fragments", "realign", "GroupPlan", "SoloPlan",
     "solo_plan", "pool_key", "GraftPlanner", "ExecutionPlan",
     "PoolSpec", "PoolAction", "PlanDiff", "plan_pools", "diff_plans",
-    "apply_diff", "place", "place_pools", "migrate", "Placement",
-    "MigrationAction",
+    "apply_diff",
+    "plan_gslice", "plan_static", "plan_optimal", "place", "place_pools",
+    "migrate", "Placement", "MigrationAction",
 ]

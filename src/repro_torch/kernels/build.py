@@ -5,12 +5,16 @@ library with a plain C interface under ``<repo>/build/kernels/`` on first
 use (one ``nvcc`` per source, all started together), then loaded with
 ``ctypes``. A library's file name carries a hash of its source and of
 the shared headers (``csrc/*.cuh``), so an edited source or header is
-rebuilt and a stale build is never loaded. Nothing is built when this
-module is imported: the CPU never needs the kernels.
+rebuilt and a stale build is never loaded. A build holds an exclusive
+``fcntl`` lock on ``build/kernels/.lock``, so processes that build at once
+(a server's pool workers) compile each source once: the others wait and
+then find the library built. Nothing is built when this module is
+imported: the CPU never needs the kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -55,10 +59,12 @@ def build_all(*, ptxas_verbose: bool = False) -> dict[str, str]:
     Returns ``{source stem: nvcc output}`` for the sources compiled in
     this call; ``ptxas_verbose`` adds ``-Xptxas -v`` so that output lists
     each kernel's registers, shared memory and spills. Raises
-    :class:`KernelCompileError` if any compile fails.
+    :class:`KernelCompileError` if any compile fails. Threads of one
+    process and other processes wait for a build in progress.
     """
-    with _lock:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD_DIR / ".lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)
         jobs = {}
         for src in sorted(CSRC.glob("*.cu")):
             out = _target(src)

@@ -243,17 +243,36 @@ def fragment_forward(params: dict, cfg: ModelConfig, hidden: Tensor,
 
 def run_fragment(params: dict, cfg: ModelConfig, inputs: Tensor,
                  start: int, end: int, *,
-                 extras: Optional[dict] = None) -> Tensor:
+                 extras: Optional[dict] = None, offset: int = 0) -> Tensor:
     """Fragment execution including the embed (start==0) and head (end==L)
     boundary work — what a serving instance actually runs.
 
     ``extras`` carries the vlm/audio families' per-request inputs; the
-    ported families take none and ignore it, as the JAX package does."""
+    ported families take none and ignore it, as the JAX package does.
+    ``offset`` is the layer ``params["blocks"]`` starts at: a pool worker
+    holds only its own block range (see :func:`slice_params`)."""
     L = n_fragment_units(cfg)
     x = inputs
     if start == 0:
         x = embed_tokens(params, cfg, inputs)
-    x = fragment_forward(params, cfg, x, start, end)
+    x = fragment_forward(params, cfg, x, start - offset, end - offset)
     if end == L:
         x = unembed(params, cfg, x)
     return x
+
+
+def slice_params(params: dict, cfg: ModelConfig, start: int,
+                 end: int) -> dict:
+    """The parameters blocks ``[start, end)`` read, and nothing else: the
+    blocks of that range (views), the embedding when the range starts at
+    0 or its head is tied to it, the final norm and head when it ends at
+    the last block. Run it with ``offset=start``."""
+    L = n_fragment_units(cfg)
+    out = {"blocks": slice_blocks(params["blocks"], start, end)}
+    if start == 0 or (end == L and cfg.tie_embeddings):
+        out["embed"] = params["embed"]
+    if end == L:
+        out["final_norm"] = params["final_norm"]
+        if not cfg.tie_embeddings:
+            out["lm_head"] = params["lm_head"]
+    return out

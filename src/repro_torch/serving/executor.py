@@ -49,6 +49,7 @@ from repro_torch.core.placement import MOVE, migrate, place_pools
 from repro_torch.core.plandiff import (diff_plans, plan_pools, pool_range,
                                        PlanDiff, PoolSpec)
 from repro_torch.core.repartition import pool_key
+from repro_torch.kernels import launch_counts
 from repro_torch.models import n_fragment_units, resolve_device, run_fragment
 from repro_torch.models.decode import (cache_len_for, decode_step,
                                        init_cache, prefill)
@@ -105,7 +106,14 @@ def _sig_tuple(x):
 
 
 def _params_device(params: dict) -> torch.device:
-    return params["embed"].device
+    """Where ``params`` lie (a worker's slice may hold no embedding)."""
+    for v in params.values():
+        if isinstance(v, dict):
+            if v:
+                return _params_device(v)
+        else:
+            return v.device
+    raise ValueError("params hold no tensor")
 
 
 def _extras_sig(extras: Optional[dict]) -> tuple:
@@ -124,15 +132,27 @@ class FragmentInstance:
     A ``retarget`` to batch 0 puts the pool in *draining* mode: queued
     work still flushes (at batch 1) but new submissions are refused with
     :class:`PoolDrainingError`.
+
+    ``layer_offset`` is the layer ``params["blocks"]`` starts at: a pool
+    worker holds only the parameters its block range reads
+    (``models.transformer.slice_params``).
     """
 
     def __init__(self, params, cfg: ModelConfig, spec: PoolSpec,
-                 *, packed: bool = True, decode_ctx: int = 0,
+                 *, packed: bool = True, chips=None, decode_ctx: int = 0,
                  kv_blocks: int = 64, kv_block_tokens: int = 16,
-                 telemetry=None):
+                 telemetry=None, layer_offset: int = 0):
         self.cfg = cfg
+        # in-process pools share the server's registry (merge-free);
+        # worker processes get their own, which rides back on the
+        # ``stats`` op as a snapshot and merges parent-side
         self.telemetry = telemetry if telemetry is not None \
             else NULL_TELEMETRY
+        # True only when this instance's registry is private to a worker
+        # process: then the stats snapshot may DRAIN spans (the parent
+        # adopts them). An in-process pool shares the server's registry,
+        # which must never be drained through the stats path.
+        self.owns_telemetry = False
         self._m_exec_ms = self.telemetry.histogram("pool/exec_ms")
         self._m_batch_tokens = self.telemetry.histogram("pool/batch_tokens")
         self.key = spec.key
@@ -144,8 +164,9 @@ class FragmentInstance:
         # pad-to-bucket path stays the fallback (models.packed.is_packable)
         self.packed = packed and is_packable(cfg)
         self._units = n_fragment_units(cfg)
-        self.chips: list = []         # placement binding (the bind op)
+        self.chips: list = list(chips) if chips else []   # placement binding
         self._params = params
+        self.layer_offset = int(layer_offset)
         self.device = _params_device(params)
         self.queue: list = []
         self.n_batches = 0
@@ -245,7 +266,8 @@ class FragmentInstance:
         y = self._call_counted(
             _packed_forward, self._params, cat[None],
             torch.from_numpy(seg).to(dev)[None],
-            torch.from_numpy(pos).to(dev)[None], self.start,
+            torch.from_numpy(pos).to(dev)[None],
+            self.start - self.layer_offset,
             cfg=self.cfg, depth=self.end - self.start,
             embed=self.start == 0, head=self.end == self._units,
             shape_key=("packed", tuple(cat.shape), str(cat.dtype)))
@@ -280,7 +302,7 @@ class FragmentInstance:
             t0 = time.perf_counter()
             y = self._call_counted(
                 run_fragment, self._params, self.cfg, stacked, self.start,
-                self.end, extras=extras,
+                self.end, extras=extras, offset=self.layer_offset,
                 shape_key=(tuple(stacked.shape), str(stacked.dtype), sig))
             self._m_exec_ms.record((time.perf_counter() - t0) * 1e3)
             real = sum(S for _, _, S in items)
@@ -705,7 +727,17 @@ class PoolService:
                     # prefix-residency digest for KV-affinity pool choice
                     "kv_residency": list(inst.kv.residency_digest())
                     if inst.kv else [],
-                    "telemetry": tel.snapshot() if tel.enabled else None}
+                    # this process's kernel launches: a worker's ride
+                    # back here, so a parent counts them too
+                    "launches": launch_counts(),
+                    # worker-side registry rides back here and merges
+                    # parent-side (span drain hands ownership over)
+                    "telemetry": tel.snapshot(
+                        drain_spans=inst.owns_telemetry)
+                    if tel.enabled else None}
+        if op == "launches":
+            return {"ok": True, "pid": os.getpid(),
+                    "launches": launch_counts(reset=bool(msg.get("reset")))}
         raise ValueError(f"unknown pool op {op!r}")
 
 
@@ -822,6 +854,12 @@ class PoolHandle:
     def stats(self) -> dict:
         return self._call({"op": "stats"})
 
+    def launches(self, *, reset: bool = False) -> dict:
+        """Kernel launch counts of the process running this pool
+        (``reset`` zeroes them after reading)."""
+        return self._call({"op": "launches", "reset": bool(reset)})[
+            "launches"]
+
     def queue_len(self) -> int:
         return int(self.stats()["queue_len"])
 
@@ -881,6 +919,8 @@ class GraftExecutor:
 
     # ------------------------------------------------------------- pools
     def _spawn_pool(self, spec: PoolSpec) -> PoolHandle:
+        """Create a pool and return its handle. ``RemoteExecutor``
+        overrides this to spawn a worker process instead."""
         svc = PoolService(FragmentInstance(
             self.params, self.cfg, spec, packed=self.packed,
             decode_ctx=self.decode_ctx, kv_blocks=self.kv_blocks,
@@ -891,15 +931,21 @@ class GraftExecutor:
         return PoolHandle(spec.key, self.transport.connect(name))
 
     def _spawn_pools(self, specs: list) -> dict:
-        """Create several pools; returns {key: handle}. All-or-nothing:
-        a failed spawn retires the pools already created."""
+        """Create several pools; returns {key: handle}. Sequential here;
+        ``RemoteExecutor`` spawns its workers in parallel, so a replan's
+        stall is the slowest spawn, not the sum. All-or-nothing: a failed
+        spawn retires the pools already created, so no endpoint (or
+        worker process) leaks."""
         created = {}
         try:
             for spec in specs:
                 created[spec.key] = self._spawn_pool(spec)
         except Exception:
             for h in created.values():
-                self._retire_pool(h)
+                try:
+                    self._retire_pool(h)
+                except Exception:
+                    pass
             raise
         return created
 
@@ -947,6 +993,15 @@ class GraftExecutor:
     def chips_of(self, key: tuple) -> list:
         """Chip index per instance of pool ``key`` (empty pre-placement)."""
         return self.placement.chips_of(key) if self.placement else []
+
+    def prepare_plan(self, new_plan: ExecutionPlan) -> int:
+        """Start the pools ``new_plan`` adds ahead of :meth:`apply_plan`,
+        without touching the live deployment, so a server can do it
+        outside its writer lock. An in-process pool is built inside
+        ``apply_plan`` at no cost, so there is nothing to do here;
+        ``RemoteExecutor`` starts the pools' worker processes. Returns
+        the number of pools started."""
+        return 0
 
     def apply_plan(self, new_plan: ExecutionPlan) -> PlanDiff:
         """Transition the live deployment to ``new_plan``. Pools whose
@@ -1113,9 +1168,11 @@ class GraftExecutor:
         return self._handles[key]
 
     def open_handle(self, key: tuple) -> PoolHandle:
-        """A NEW channel to pool ``key``: a server opens its own so its
-        uplink submits do not serialize on the shared deploy handle; the
-        pool itself serializes execution in PoolService."""
+        """A NEW channel to pool ``key``: each server (a fleet's
+        front-ends each) opens its own so its uplink submits do not
+        serialize on the shared deploy handle; the pool itself
+        serializes execution in PoolService. ``RemoteExecutor`` opens a
+        new dial-back lane to the pool's worker."""
         if key not in self._handles:
             raise KeyError(f"no pool {key}")
         return PoolHandle(key, self.transport.connect(pool_endpoint(key)))
@@ -1172,6 +1229,10 @@ class GraftExecutor:
                                 prefix=f"pool/{label}/")
             n += 1
         return n
+
+    def worker_pids(self) -> dict:
+        """PoolKey -> pid of the process executing that pool."""
+        return {key: s["pid"] for key, s in self.pool_stats().items()}
 
     @property
     def n_stage_pools(self) -> int:

@@ -52,6 +52,7 @@ generated token ids.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 import traceback
@@ -130,6 +131,7 @@ class _InFlight:
     chain: list = field(default_factory=list)   # [PoolKey, ...]
     stage: int = 0
     rerouted: int = 0
+    steal_hops: int = 0              # cross-front-end work-steal moves
     local: bool = False              # finished by the in-process fallback
     shed_exempt: bool = False        # budget-forced admit: never shed later
     trace: bool = False              # won the telemetry span-sampling draw
@@ -152,7 +154,8 @@ class PoolDriver(threading.Thread):
                          name=f"pool-driver-{key[0]}-{key[1]}-{key[2]}")
         self.server = server
         self.key = key
-        self.batcher = MicroBatcher(max_batch=max(spec.batch, 1))
+        self.batcher = MicroBatcher(max_batch=max(spec.batch, 1),
+                                    max_tokens=server.token_budget)
         self.model_est_ms = server._model_stage_cost(spec)
         self.exec_ewma_ms: Optional[float] = None   # measured batch wall
         self.busy_until_ms = 0.0     # estimated end of the batch in flight
@@ -164,6 +167,9 @@ class PoolDriver(threading.Thread):
         self.decode_active = 0
         self.decode_resident: dict[int, str] = {}    # rid -> client
         self.decode_step_ewma: Optional[float] = None
+        # fleet mode: another front-end's streams hold the shared decode
+        # pool's slots; no admission is tried before this (monotonic s)
+        self.slot_wait_until = 0.0
 
     def est_cost_ms(self) -> float:
         """Per-batch cost estimate: measured EWMA once the pool has run,
@@ -193,7 +199,8 @@ class PoolDriver(threading.Thread):
         while True:
             if self.stop_flag or self.batcher.stopped:
                 return
-            batch, stepped = None, False
+            batch, foreign, stepped = None, None, False
+            waiting = self.slot_wait_until - time.monotonic()
             with srv._rw.read():
                 if self.stop_flag:
                     return
@@ -204,21 +211,32 @@ class PoolDriver(threading.Thread):
                     # decode stream
                     stepped = True
                     try:
-                        srv._decode_tick(self)
+                        foreign = srv._decode_tick(self)
                     except Exception:
                         traceback.print_exc()
-                else:
+                elif waiting <= 0:
                     batch = self.batcher.pop_ready(srv.now_ms())
                     if batch:
                         try:
-                            srv._run_batch(self, batch)
+                            foreign = srv._run_batch(self, batch)
                         except Exception:
                             # the driver thread must NEVER die with work
                             # outstanding: salvage the popped batch so
                             # join() can't strand, then keep serving
                             traceback.print_exc()
                             srv._salvage(batch)
-            if not batch and not stepped:
+            # fleet mode: a shared pool's flush can return requests OWNED
+            # BY ANOTHER FRONT-END — hand them over OUTSIDE our read
+            # section (the receiving server takes its own lock; nesting
+            # the two would deadlock against a fleet-wide writer)
+            if foreign:
+                try:
+                    srv.foreign_router(foreign)
+                except Exception:
+                    traceback.print_exc()
+            if waiting > 0 and not stepped:
+                time.sleep(min(waiting, 0.02))
+            elif not batch and not stepped:
                 self.batcher.wait_for_work(srv.now_ms())
 
 
@@ -235,8 +253,14 @@ class GraftServer:
                  ingest_threads: Optional[int] = None,
                  shed_policy: Optional[ShedPolicy] = None,
                  flush_safety_frac: float = 0.15,
+                 token_budget: int = 0,
                  name: str = "graft",
                  clock: Optional[Callable[[], float]] = None,
+                 ctl_lock: Optional[threading.Lock] = None,
+                 external_control: bool = False,
+                 registry: Optional[dict] = None,
+                 foreign_router: Optional[Callable] = None,
+                 decode_continuous: bool = True,
                  tpot_default_ms: float = 50.0,
                  telemetry=None):
         self.executor = executor
@@ -253,6 +277,7 @@ class GraftServer:
         self._m_latency_ms = tel.histogram("server/latency_ms")
         self._m_queue_ms = tel.histogram("server/queue_ms")
         self._m_uplink_ms = tel.histogram("server/uplink_ms")
+        self._m_uplink_bytes = tel.histogram("server/uplink_bytes")
         self._m_exec_ms = tel.histogram("server/exec_ms")
         self._m_ttft_ms = tel.histogram("server/ttft_ms")
         self._m_tpot_ms = tel.histogram("server/tpot_ms")
@@ -264,10 +289,22 @@ class GraftServer:
         self.cfg = executor.cfg
         self.name = name
         self.hop_default_ms = hop_default_ms
+        # token-budget-aware batching: > 0 closes a pool's batch when its
+        # pending payload TOKENS reach the budget, so packed buffers stay
+        # inside one token bucket instead of growing with queue depth
+        self.token_budget = max(int(token_budget), 0)
+        # decode serving: continuous admits new requests into a RUNNING
+        # decode batch at step boundaries; False degrades to the "waved"
+        # baseline (a new wave only starts once the batch fully drains)
+        self.decode_continuous = decode_continuous
         self.tpot_default_ms = float(tpot_default_ms)
         self._period_ms = getattr(controller, "control_period_ms", 250.0)
         self.waiting_grace_ms = waiting_grace_ms \
             if waiting_grace_ms is not None else 4.0 * self._period_ms
+        # fleet plumbing: a GraftFleet shares ONE clock, controller lock,
+        # rid->server registry, and shed policy across its front-ends and
+        # owns the control loop itself (external_control). Standalone
+        # servers get private defaults and keep controlling themselves.
         self.shed_policy = shed_policy
         # batches used to close at the LAST instant that could still meet
         # the SLO — which lands every deadline-closed request exactly ON
@@ -276,6 +313,9 @@ class GraftServer:
         # marginal). Reserve a slice of the budget as headroom instead.
         self.flush_safety_frac = flush_safety_frac
         self.ingest_threads = ingest_threads      # None -> min(4, n_clients)
+        self.external_control = external_control
+        self.registry = registry
+        self.foreign_router = foreign_router
         self._clock = clock
         # exec-duration measurement rides the SAME injectable clock as
         # now_ms(): under a fake clock every EWMA (exec, uplink window)
@@ -284,7 +324,8 @@ class GraftServer:
             else (lambda: time.perf_counter() * 1e3)
 
         self._rw = _RWLock()
-        self._ctl_lock = threading.Lock()
+        self._ctl_lock = ctl_lock if ctl_lock is not None \
+            else threading.Lock()
         self._drivers: dict[tuple, PoolDriver] = {}
         self._local_handles: dict[tuple, object] = {}   # per-server channels
         self._routes: dict[str, list] = {}
@@ -318,8 +359,25 @@ class GraftServer:
         self.residency_ttl_ms = 250.0
         self._disagg_mark = (0, 0)            # (decode_local, decode_served)
 
+        # router signal state: recent admit/shed outcomes (shed-rate
+        # scoring) and digests of prompt prefixes whose KV blocks were
+        # admitted through THIS front-end (cache-affinity scoring)
+        self._outcomes: deque = deque(maxlen=256)    # True = shed
+        self._affinity_lock = threading.Lock()
+        self._affinity: deque = deque()
+        self._affinity_set: set = set()
+        self.affinity_cap = 1024
+
         self._stop_evt = threading.Event()
         self._kick = threading.Event()
+        # parked requests do not expire before this (now_ms clock): a
+        # replan being deployed (a worker spawn can outlast the grace) or
+        # refused and to be retried may cover them
+        self._hold_parked_until = 0.0
+        # when the controller last finished a look at the traffic (the
+        # fleet's tick sets it under external control): a request parked
+        # after that has not been seen by a replan yet
+        self._controlled_ms = -math.inf
         self._threads: list[threading.Thread] = []
         self._started = False
         self._closed = False
@@ -331,12 +389,12 @@ class GraftServer:
                       "shed_decode": 0, "decode_served": 0,
                       "decode_tokens": 0, "decode_local": 0,
                       "kv_handoffs": 0, "applies_refused": 0,
-                      "tick_errors": 0}
+                      "tick_errors": 0, "steals_in": 0, "steals_out": 0}
         self._t0 = time.monotonic()
 
     # -------------------------------------------------------------- clock
     def now_ms(self) -> float:
-        if self._clock is not None:        # an injected (test) clock
+        if self._clock is not None:        # fleet mode: one shared clock
             return self._clock()
         return (time.monotonic() - self._t0) * 1e3
 
@@ -400,6 +458,8 @@ class GraftServer:
             raise RuntimeError("server is stopped")
         rid = self.executor.next_rid()
         with self._ingest_cond:
+            if self.registry is not None:      # fleet: results may surface on
+                self.registry[rid] = self      # ANOTHER front-end's flush
             self._ingest_q.append((rid, req, p, budget_ms, self.now_ms()))
             self._n_submitted += 1
             self._ingest_cond.notify_all()
@@ -421,6 +481,8 @@ class GraftServer:
             except Exception:
                 traceback.print_exc()
                 self._inflight.pop(job[0], None)
+                if self.registry is not None:    # don't leak the rid slot
+                    self.registry.pop(job[0], None)
                 with self._done_cond:        # never strand join()
                     self._n_done += 1
                     self._done_cond.notify_all()
@@ -555,6 +617,33 @@ class GraftServer:
         frag = Fragment(model=self.cfg.name, p=0, t=budget_ms, q=0.0,
                         client=client)
         return fragment_signature(frag, quantum)
+
+    def request_digest(self, req: ServeRequest, budget_ms: float) -> tuple:
+        """Prompt-prefix digest of one request (reuse signature + chunked
+        prompt hashes) — what the fleet router matches against each
+        front-end's :meth:`affinity_digest` so repeated prompts land
+        where their KV blocks already live."""
+        from repro_torch.serving.kvcache import prefix_digest
+        return prefix_digest(self._reuse_sig(req.client, budget_ms),
+                             np.asarray(req.tokens).reshape(-1),
+                             self._kv_block_tokens())
+
+    def _note_affinity(self, digests) -> None:
+        """Record prompt-prefix digests admitted through this front-end
+        (bounded LRU — the router's cache-affinity signal)."""
+        with self._affinity_lock:
+            for d in digests:
+                if d in self._affinity_set:
+                    continue
+                while len(self._affinity) >= self.affinity_cap:
+                    self._affinity_set.discard(self._affinity.popleft())
+                self._affinity.append(d)
+                self._affinity_set.add(d)
+
+    def affinity_digest(self) -> frozenset:
+        """Digests of prompt prefixes whose KV was admitted here."""
+        with self._affinity_lock:
+            return frozenset(self._affinity_set)
 
     def _decode_sig(self, st: _InFlight) -> tuple:
         return self._reuse_sig(st.req.client, st.budget_ms)
@@ -740,6 +829,9 @@ class GraftServer:
         completion log flagged, so reports can split p99-of-admitted
         from offered load."""
         self._inflight.pop(rid, None)
+        if self.registry is not None:
+            self.registry.pop(rid, None)
+        self._outcomes.append(True)
         self.stats["shed_" + where] += 1
         self._m_shed.inc()
         self._m_inflight.set(len(self._inflight))
@@ -802,7 +894,9 @@ class GraftServer:
     def _run_batch(self, driver: PoolDriver, batch: list):
         """Execute one closed batch on the driver's pool (read lock held):
         stage-0 items pay the per-client uplink submit (measured/shaped
-        individually), deeper items ride one batched execute frame."""
+        individually), deeper items ride one batched execute frame.
+        Returns results owned by another front-end (fleet mode) for the
+        caller to dispatch outside the lock, or None."""
         handle = self._pool_handle(driver.key)
         # decode items reach pop_ready only while the pool has NO running
         # decode batch (the driver switches to _decode_tick otherwise):
@@ -813,7 +907,7 @@ class GraftServer:
                 self._decode_admit(driver, handle, it)
             batch = [it for it in batch if not it.decode]
             if not batch:
-                return
+                return None
         now = self.now_ms()
         pool_tid = "pool/{}/{}-{}".format(*driver.key)
         stage0, later = [], []
@@ -834,7 +928,7 @@ class GraftServer:
                                     args={"stage": st.stage})
             (stage0 if st.stage == 0 else later).append(it)
         if not stage0 and not later:
-            return
+            return None
         driver.busy_until_ms = self.now_ms() \
             + sum(it.hop_charge_ms for it in stage0) + driver.est_cost_ms()
         # exec_ms accumulates ONLY pool execution: the uplink submits are
@@ -876,6 +970,7 @@ class GraftServer:
                     self.executor.record_uplink(it.client, nbytes, ms)
                     self._note_uplink(it.client, ms)
                     self._m_uplink_ms.record(ms)
+                    self._m_uplink_bytes.record(nbytes)
                     if it.trace:
                         self.telemetry.span(
                             "uplink", "server", ms, rid=it.rid,
@@ -891,7 +986,7 @@ class GraftServer:
             # intake refused atomically: nothing queued pool-side
             for it in stage0 + later:
                 self._reroute_item(it)
-            return
+            return None
         except Exception:
             traceback.print_exc()
             recovered = {}
@@ -899,14 +994,22 @@ class GraftServer:
                 recovered = dict(handle.flush())
             except Exception:
                 pass
+            foreign = None
             for rid, y in recovered.items():
                 if rid in self._inflight:
                     self._advance(rid, y)
+                elif self.foreign_router is not None:
+                    # a shared pool's recovery flush can surface ANOTHER
+                    # front-end's results too — dropping them here would
+                    # strand those requests forever
+                    if foreign is None:
+                        foreign = []
+                    foreign.append((rid, y))
             for it in stage0 + later:
                 if it.rid not in recovered and it.rid in self._inflight:
                     self._finish_local(it.rid, self._inflight[it.rid],
                                        it.payload, boundary=it.boundary)
-            return
+            return foreign
         finally:
             # the batch is over on every path: a stale busy_until would
             # keep charging phantom backlog to ingest admission
@@ -914,9 +1017,15 @@ class GraftServer:
         driver.note_exec(exec_ms)
         self._m_exec_ms.record(exec_ms)
         self.stats["batches"] += 1
+        foreign = None
         for rid, y in results:
             if rid in self._inflight:
                 self._advance(rid, y)
+            elif self.foreign_router is not None:
+                if foreign is None:
+                    foreign = []
+                foreign.append((rid, y))
+        return foreign
 
     # ----------------------------------------------------- decode execute
     def _decode_tick(self, driver: PoolDriver):
@@ -924,9 +1033,14 @@ class GraftServer:
         held): pull queued admissions at the step boundary, advance every
         resident sequence one token, retire finished streams, and abort
         streams whose remaining tokens provably cannot meet the absolute
-        deadline (shed charge = remaining decode length)."""
+        deadline (shed charge = remaining decode length). With
+        ``decode_continuous`` off this degrades to the waved baseline:
+        new admissions wait until the whole batch drains. Returns results
+        owned by another front-end, as :meth:`_run_batch` does."""
         handle = self._pool_handle(driver.key)
-        if driver.decode_free > 0:
+        foreign = None
+        if driver.decode_free > 0 and (self.decode_continuous
+                                       or driver.decode_active == 0):
             items = driver.batcher.take(driver.decode_free)
             oneshot = [it for it in items if not it.decode]
             for it in items:
@@ -935,9 +1049,9 @@ class GraftServer:
             if oneshot:
                 # a mixed pool: taken one-shot items run as a normal
                 # batch between decode steps
-                self._run_batch(driver, oneshot)
+                foreign = self._run_batch(driver, oneshot)
         if driver.decode_active == 0:
-            return
+            return foreign
         t0 = self._perf()
         rep = handle.decode_step()
         driver.note_decode_step(self._perf() - t0)
@@ -945,6 +1059,11 @@ class GraftServer:
         for ev in rep.get("events", []):
             st = self._inflight.get(ev["rid"])
             if st is None:
+                if self.foreign_router is not None:
+                    # fleet mode: one step advances every stream resident
+                    # on the shared pool, another front-end's too; its
+                    # owner must see the event (above all the last one)
+                    foreign = (foreign or []) + [(ev["rid"], ev)]
                 continue
             st.n_gen = int(ev.get("n_gen", st.n_gen))
             if not ev.get("done"):
@@ -959,6 +1078,7 @@ class GraftServer:
         driver.decode_active = int(rep.get("active", 0))
         driver.decode_free = int(rep.get("free_slots", driver.decode_free))
         self._shed_mid_decode(driver, handle, now)
+        return foreign
 
     def _decode_admit(self, driver: PoolDriver, handle, item: BatchItem):
         """Admit one queued decode request into the pool's running batch
@@ -972,7 +1092,7 @@ class GraftServer:
         est_first = driver.est_cost_ms()
         if disagg and self._handoff_ewma_ms is not None:
             # the cross-pool KV handoff is real work on the TTFT path —
-            # charge it to the shed-slack model like an uplink hop
+            # charge it to the shed-slack model like a steal hop
             est_first += self._handoff_ewma_ms
         if self.shed_policy is not None and not st.shed_exempt:
             blown = ShedPolicy.hopeless_decode(
@@ -1021,10 +1141,20 @@ class GraftServer:
         if not r.get("admitted"):
             # soft refusal: slots/blocks are full right now (retry at a
             # later step boundary, bounded) — or the pool cannot decode
-            # at all, which no retry fixes
-            if r.get("reason") in ("not_decode_capable", "role_prefill") \
-                    or st.decode_retries >= 2:
+            # at all, which no retry fixes. In fleet mode a shared pool's
+            # slots may be held by another front-end's streams, which
+            # finish on their own: wait a decode step and ask again (no
+            # retry is spent on it)
+            reason = r.get("reason")
+            shared_wait = reason == "no_slot" and self.registry is not None
+            if reason in ("not_decode_capable", "role_prefill") \
+                    or (st.decode_retries >= 2 and not shared_wait):
                 self._decode_local(item.rid, st, item.payload)
+            elif shared_wait:
+                driver.decode_free = 0
+                driver.slot_wait_until = time.monotonic() + max(
+                    driver.tpot_est_ms(), 10.0) / 1e3
+                driver.batcher.put(item)
             else:
                 st.decode_retries += 1
                 driver.batcher.put(item)
@@ -1039,6 +1169,9 @@ class GraftServer:
             e = self._handoff_ewma_ms
             self._handoff_ewma_ms = admit_ms if e is None \
                 else 0.8 * e + 0.2 * admit_ms
+        from repro_torch.serving.kvcache import prefix_digest
+        self._note_affinity(prefix_digest(sig, item.payload,
+                                          self._kv_block_tokens()))
         if st.t_first_ms <= 0.0:
             # disagg stamped TTFT at the prefill reply already — the
             # first token existed before the decode pool heard of us
@@ -1154,6 +1287,8 @@ class GraftServer:
         st.req.out_tokens = toks
         st.req.result = np.asarray(toks, np.int32)
         self._inflight.pop(rid, None)
+        if self.registry is not None:
+            self.registry.pop(rid, None)
         t_done = self.now_ms()
         ttft = st.t_first_ms - st.t_arrive_ms
         n = max(len(toks), 1)
@@ -1162,6 +1297,7 @@ class GraftServer:
             and t_done <= st.deadline_ms
         self.stats["decode_served"] += 1
         self.stats["decode_tokens"] += n
+        self._outcomes.append(False)
         self._m_completed.inc()
         self._m_inflight.set(len(self._inflight))
         self._m_latency_ms.record(t_done - st.t_arrive_ms)
@@ -1262,6 +1398,149 @@ class GraftServer:
                 except Exception:
                     pass
 
+    def accept_results(self, results: list) -> None:
+        """Advance requests whose stage output surfaced on ANOTHER
+        front-end's flush of a shared pool (fleet dispatch target), or
+        whose decode event (a dict) came back on another front-end's
+        step of a shared decode pool."""
+        with self._rw.read():
+            for rid, y in results:
+                if isinstance(y, dict):
+                    self._accept_decode_event(rid, y)
+                else:
+                    self._advance(rid, y)
+
+    def _accept_decode_event(self, rid: int, ev: dict) -> None:
+        """A step event of a stream this front-end admitted: the last
+        one completes it and frees its slot in the driver that holds it
+        (read lock held)."""
+        st = self._inflight.get(rid)
+        if st is None:
+            return
+        st.n_gen = int(ev.get("n_gen", st.n_gen))
+        if not ev.get("done"):
+            return
+        for drv in list(self._drivers.values()):
+            if drv.decode_resident.pop(rid, None) is not None:
+                drv.decode_active = max(drv.decode_active - 1, 0)
+                break
+        if ev.get("oom"):
+            self._shed(rid, st, "decode")
+        else:
+            self._complete_decode(rid, st, ev["tokens"])
+
+    # ------------------------------------------------------ work stealing
+    def steal_queued(self, k: Optional[int] = None) -> list:
+        """Hand up to ``k`` queued-NOT-in-flight items (every eligible
+        item when None) to a peer front-end. Taken under the writer lock
+        so no driver can pop a batch containing them mid-steal. Decode
+        items in the batcher are queued-not-yet-ADMITTED: they hold no
+        resident KV anywhere, so they steal exactly like one-shot items
+        (admitted streams live in ``decode_resident`` and never re-enter
+        a batcher, so residency can't leave with a steal).
+        Returns ``[(BatchItem, _InFlight)]`` pairs; the request leaves
+        this front-end's in-flight table and join() accounting entirely
+        (the thief's :meth:`accept_stolen` picks both up), so a steal
+        can never strand or double-count a rid."""
+        stolen: list = []
+        with self._rw.write():
+            for drv in list(self._drivers.values()):
+                room = None if k is None else k - len(stolen)
+                if room is not None and room <= 0:
+                    break
+                stolen.extend(drv.batcher.steal(room))
+        out = []
+        for item in stolen:
+            st = self._inflight.pop(item.rid, None)
+            if st is None:                    # shed/completed mid-steal
+                continue
+            out.append((item, st))
+        if out:
+            self.stats["steals_out"] += len(out)
+            self._m_inflight.set(len(self._inflight))
+            with self._done_cond:
+                self._n_submitted -= len(out)
+                self._done_cond.notify_all()
+        return out
+
+    def accept_stolen(self, stolen: list) -> int:
+        """Adopt ``(BatchItem, _InFlight)`` pairs stolen off a peer
+        front-end. The extra hop is charged to the request's shed-policy
+        slack: the normal flush checkpoint decides (honoring
+        ``shed_exempt`` and the per-client budget), but the request is
+        NEVER re-billed as a fresh admission — no ``note_admitted``, so
+        one request holds exactly one window entry however many times it
+        is stolen. Returns the number of requests adopted (sheds on
+        arrival included — they are accounted here, not dropped)."""
+        if not stolen:
+            return 0
+        with self._done_cond:
+            self._n_submitted += len(stolen)
+        with self._rw.read():
+            for item, st in stolen:
+                st.steal_hops += 1
+                self._inflight[item.rid] = st
+                if self.registry is not None:
+                    self.registry[item.rid] = self
+                self.stats["steals_in"] += 1
+                now = self.now_ms()
+                hop = self._hop_ms(item.client)
+                if self.shed_policy is not None and \
+                        self._shed_at_flush(item, st, now, extra_ms=hop):
+                    continue
+                self._reroute_item(item, count=False)
+        self._m_inflight.set(len(self._inflight))
+        return len(stolen)
+
+    # ------------------------------------------------------ router signals
+    @property
+    def n_queued(self) -> int:
+        """Queued-not-in-flight items across every pool batcher."""
+        return sum(len(d.batcher) for d in list(self._drivers.values()))
+
+    def queue_depth_ms(self, now: Optional[float] = None) -> float:
+        """Estimated milliseconds of work backed up on this front-end:
+        queued uplink charges, the batch each driver is already pushing
+        (``busy_until_ms``), execution of the queued batches, and the
+        ingest queue still awaiting mobile parts. This is the router's
+        load signal — the marginal wait a new request would inherit."""
+        t = self.now_ms() if now is None else now
+        total = 0.0
+        for drv in list(self._drivers.values()):
+            q = len(drv.batcher)
+            total += drv.batcher.pending_hop_ms \
+                + max(drv.busy_until_ms - t, 0.0)
+            if q:
+                total += (q / max(drv.batcher.max_batch, 1)) \
+                    * drv.est_cost_ms()
+        with self._ingest_cond:
+            n_ingest = len(self._ingest_q)
+        return total + n_ingest * self.hop_default_ms
+
+    def steal_pressure_ms(self, now: Optional[float] = None) -> float:
+        """Milliseconds of work that is LATE on this front-end: batches
+        already pushing (``busy_until_ms``) plus execution of queued
+        items whose flush deadline has passed. Items waiting out a
+        future flush deadline are deliberate batching slack, not
+        pressure — stealing them churns placement without helping
+        latency, so the fleet balancer keys its imbalance test on this
+        instead of :meth:`queue_depth_ms`."""
+        t = self.now_ms() if now is None else now
+        total = 0.0
+        for drv in list(self._drivers.values()):
+            total += max(drv.busy_until_ms - t, 0.0)
+            due = drv.batcher.n_due(t)
+            if due:
+                total += (due / max(drv.batcher.max_batch, 1)) \
+                    * drv.est_cost_ms()
+        return total
+
+    def recent_shed_frac(self) -> float:
+        """Shed fraction over the last ~256 outcomes on this front-end
+        (the router's shed-rate penalty input)."""
+        o = list(self._outcomes)
+        return sum(o) / len(o) if o else 0.0
+
     def _advance(self, rid: int, y) -> None:
         st = self._inflight.get(rid)
         if st is None:
@@ -1285,8 +1564,11 @@ class GraftServer:
     def _complete(self, rid: int, st: _InFlight, y) -> None:
         st.req.result = y
         self._inflight.pop(rid, None)
+        if self.registry is not None:
+            self.registry.pop(rid, None)
         t_done = self.now_ms()
         latency = t_done - st.t_arrive_ms
+        self._outcomes.append(False)
         self._m_completed.inc()
         self._m_inflight.set(len(self._inflight))
         self._m_latency_ms.record(latency)
@@ -1307,17 +1589,21 @@ class GraftServer:
                                              budget_ms=st.budget_ms)
 
     # ------------------------------------------------- reroute / fallback
-    def _reroute_item(self, item: BatchItem) -> None:
+    def _reroute_item(self, item: BatchItem, *, count: bool = True) -> None:
         """Re-home a request whose pool vanished: same block boundary in
-        the client's new chain if one exists, else finish locally."""
+        the client's new chain if one exists, else finish locally.
+        ``count=False`` skips the reroute accounting — a stolen item
+        re-enqueued on its new front-end went exactly where it was
+        routed, it did not bounce off a stale chain."""
         st = self._inflight.get(item.rid)
         if st is None:
             return
-        st.rerouted += 1
-        self.stats["rerouted"] += 1
         if item.decode:
             # decode re-homing: only another full-range pool will do;
             # otherwise the local fallback keeps the stream exact
+            if count:
+                st.rerouted += 1
+                self.stats["rerouted"] += 1
             chain = self._decode_chain(item.client)
             if chain is not None:
                 st.chain = chain
@@ -1330,10 +1616,16 @@ class GraftServer:
         if chain:
             for idx, key in enumerate(chain):
                 if key[1] == item.boundary:
+                    if count:
+                        st.rerouted += 1
+                        self.stats["rerouted"] += 1
                     st.chain = list(chain)
                     st.stage = idx
                     self._enqueue_stage(item.rid, st, item.payload)
                     return
+        if count:
+            st.rerouted += 1
+            self.stats["rerouted"] += 1
         self._finish_local(item.rid, st, item.payload,
                            boundary=item.boundary)
 
@@ -1351,6 +1643,8 @@ class GraftServer:
             except Exception:
                 traceback.print_exc()
                 self._inflight.pop(it.rid, None)
+                if self.registry is not None:
+                    self.registry.pop(it.rid, None)
                 with self._done_cond:
                     self._n_done += 1
                     self._done_cond.notify_all()
@@ -1425,10 +1719,13 @@ class GraftServer:
         would remove still holding queued requests or resident decode
         streams. The controller then believes the deployed plan again
         (``revert``), so its triggers fire against what runs and a later
-        tick replans, once that work is done."""
+        tick replans, once that work is done.
+
+        With ``external_control`` the fleet owns the controller; this
+        tick only re-routes and expires parked requests."""
         plan = None
         self._feed_disagg_pressure()
-        if self.controller is not None:
+        if self.controller is not None and not self.external_control:
             now = self.now_ms()
             samples = self.executor.drain_uplink()
             with self._ctl_lock:
@@ -1443,6 +1740,7 @@ class GraftServer:
                     with self._ctl_lock:
                         self.controller.revert(str(e))
                     self.stats["applies_refused"] += 1
+                    self.hold_parked()
                     plan = None
             if plan is not None:
                 apply_ms = self._perf() - t0
@@ -1451,6 +1749,8 @@ class GraftServer:
                 if hasattr(self.controller, "note_apply"):
                     with self._ctl_lock:
                         self.controller.note_apply(apply_ms)
+        if self.controller is None or not self.external_control:
+            self._controlled_ms = self.now_ms()
         self._route_waiting()
         self._expire_waiting(self.now_ms())
         return plan
@@ -1458,36 +1758,48 @@ class GraftServer:
     def _refuse_stranding(self, plan) -> None:
         """Raise :class:`PlanRefused` when ``plan`` routes no chain for a
         client with requests still in flight here."""
-        routed = _routing(plan)
-        busy = {st.req.client for st in list(self._inflight.values())}
-        stranded = sorted(c for c in busy if c not in routed)
+        stranded = self.stranded_clients(plan)
         if stranded:
             raise PlanRefused(f"clients {stranded} still have requests in "
                               "flight")
+
+    def stranded_clients(self, plan) -> list:
+        """Clients with requests in flight here that ``plan`` routes no
+        chain for (a fleet checks every front-end before it applies)."""
+        routed = _routing(plan)
+        busy = {st.req.client for st in list(self._inflight.values())}
+        return sorted(c for c in busy if c not in routed)
 
     def apply(self, new_plan):
         """Transition the live deployment to ``new_plan`` while traffic
         is in flight. Blocks until in-flight batches finish (writer
         lock), applies the executor diff (removed pools retire, kept
         pools keep compiled programs/processes), then reroutes anything
-        queued on a removed pool."""
-        with self._rw.write():
-            diff = self.executor.apply_plan(new_plan)
-            leftovers = self._sync_to_executor(diff)
-        # re-home leftovers OUTSIDE the writer section: a local finish
-        # can mean a full forward pass, which must stall
-        # only this thread, not every pool driver
-        if leftovers:
-            with self._rw.read():
-                for item in leftovers:
-                    self._reroute_item(item)
-        self._route_waiting()
+        queued on a removed pool. Pools the plan adds are started first,
+        outside the writer lock, where the executor can
+        (``prepare_plan``: a worker process starts while traffic flows)."""
+        self._hold_parked_until = math.inf
+        try:
+            self.executor.prepare_plan(new_plan)
+            with self._rw.write():
+                diff = self.executor.apply_plan(new_plan)
+                leftovers = self._sync_to_executor(diff)
+        finally:
+            self.hold_parked()
+        self._finish_apply(leftovers)
         return diff
+
+    def hold_parked(self) -> None:
+        """Keep parked requests for one more grace period: a replan was
+        just deployed or refused, and the next may cover them."""
+        self._hold_parked_until = self.now_ms() + self.waiting_grace_ms
 
     def _sync_to_executor(self, diff) -> list:
         """Re-align drivers/routes with the executor's (already
         transitioned) deployment; caller holds the write lock. Returns
-        the batch items drained off removed pools."""
+        the batch items drained off removed pools. Split from
+        :meth:`apply` so a GraftFleet can apply ONE executor transition
+        under every front-end's writer lock."""
         leftovers = []
         for a in diff.by_kind("remove"):
             drv = self._drivers.pop(a.key, None)
@@ -1509,6 +1821,16 @@ class GraftServer:
         self._routes = self.executor.route_table()
         self.stats["replans_applied"] += 1
         return leftovers
+
+    def _finish_apply(self, leftovers: list) -> None:
+        # re-home leftovers OUTSIDE the writer section: a local finish
+        # can mean a full forward pass, which must stall
+        # only this thread, not every pool driver
+        if leftovers:
+            with self._rw.read():
+                for item in leftovers:
+                    self._reroute_item(item)
+        self._route_waiting()
 
     def _route_waiting(self) -> None:
         with self._wait_lock:
@@ -1535,11 +1857,17 @@ class GraftServer:
 
     def _expire_waiting(self, now: float) -> None:
         """Parked requests the replans never covered get finished locally
-        after a grace period — a server must answer, not starve."""
+        after a grace period — a server must answer, not starve. None
+        expires before the controller has looked at the traffic since it
+        was parked, while a replan is being deployed, nor within a grace
+        period of one deployed or refused (see :meth:`hold_parked`)."""
+        if now < self._hold_parked_until:
+            return
         with self._wait_lock:
             keep, expired = [], []
             for rid, payload, t_ms in self._waiting:
                 (expired if now - t_ms > self.waiting_grace_ms
+                 and t_ms < self._controlled_ms
                  else keep).append((rid, payload, t_ms))
             self._waiting = keep
         for rid, payload, _ in expired:
@@ -1596,6 +1924,8 @@ class GraftServer:
             if self._handoff_samples else 0.0,
             "applies_refused": self.stats["applies_refused"],
             "tick_errors": self.stats["tick_errors"],
+            "steals_in": self.stats["steals_in"],
+            "steals_out": self.stats["steals_out"],
             "mean_batch": float(np.mean(batch_sizes)) if batch_sizes
             else 0.0,
             "n_stage_pools": len(drivers),
@@ -1674,7 +2004,8 @@ def summarize_records(recs: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# wall-clock serve loop (examples, tests, chip_smoke.py's server phase)
+# wall-clock serve loop (launch/serve.py --serve-loop, tests,
+# chip_smoke.py's server and remote phases)
 # ---------------------------------------------------------------------------
 
 def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
@@ -1686,6 +2017,8 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
                    max_check: int = 64, seq_len: int = 16,
                    frontends: int = 1,
                    shed_budget_frac: Optional[float] = None,
+                   router: str = "weighted",
+                   advertise_host: str = "127.0.0.1", launcher=None,
                    telemetry=None, trace_out: Optional[str] = None,
                    metrics_dump: Optional[str] = None,
                    decode_max_new: int = 0,
@@ -1699,6 +2032,20 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
     server report plus ``plan_in_sync`` (the
     controller's plan is the deployed one) and ``controller_refused``
     (the replans ``apply_plan`` refused, each reverted and retried).
+
+    ``frontends > 1`` (or a ``shed_budget_frac``) runs the fleet
+    topology instead: several front-ends over the one executor, clients
+    routed by the load/cache-aware weighted router (``router="hrw"``
+    keeps the static rendezvous ring), the fleet owning the control
+    tick and cross-front-end work stealing.
+
+    ``mode="socket"`` runs every stage pool in a worker process behind a
+    socket (:class:`repro_torch.serving.remote.RemoteExecutor`, on the
+    executor's device); ``advertise_host``/``launcher`` say where the
+    workers dial back to and how they start (a local subprocess when
+    None). Each worker's spawn and init time is logged, and the report
+    carries ``worker_launches``: the kernels' launches inside the
+    workers, those of workers a replan retired included.
 
     ``trace_out``/``metrics_dump`` turn telemetry on (or pass an
     explicit ``telemetry`` registry) and write the trace / metrics dump
@@ -1717,26 +2064,19 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
     lo..hi instead of ``seq_len``. The report carries the one-shot
     requests as ``report["requests"]`` ([(req, p)]) and the decode
     streams as ``report["decoded"]`` ([(req, max_new)]).
-
-    ``mode="socket"`` (remote worker processes) and the fleet topology
-    (``frontends > 1`` or a ``shed_budget_frac``) are not ported yet.
     """
     from repro_torch.core import GraftPlanner
     from repro_torch.core.plandiff import plan_pools
     from repro_torch.models import n_fragment_units
     from repro_torch.serving.controller import ServingController
+    from repro_torch.serving.remote import RemoteExecutor
     from repro_torch.serving.smoke import smoke_fragments, smoke_setup
     from repro_torch.serving.transport import (InProcessTransport, LinkShape,
-                                               ShapedTransport)
+                                               ShapedTransport,
+                                               SocketTransport)
 
-    if mode != "inprocess":
-        raise NotImplementedError(
-            f"run_serve_loop(mode={mode!r}): remote worker executors are "
-            "not ported yet (ROADMAP.md, open item 5)")
-    if frontends > 1 or shed_budget_frac is not None:
-        raise NotImplementedError(
-            "run_serve_loop: the fleet topology (frontends > 1, "
-            "shed_budget_frac) is not ported yet (ROADMAP.md, open item 5)")
+    if mode not in ("inprocess", "socket"):
+        raise ValueError(f"run_serve_loop: unknown mode {mode!r}")
     say = log if log is not None else (lambda *_: None)
     if telemetry is not None:
         tel = telemetry
@@ -1758,7 +2098,7 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
         tel.audit = ctl.audit
     plan0 = ctl.bootstrap(frags, now_ms=0.0)
 
-    tp = InProcessTransport()
+    tp = SocketTransport() if mode == "socket" else InProcessTransport()
     if shaped:
         from repro_torch.data.traces import synth_5g_trace
         shapes = {f.client: LinkShape(
@@ -1772,9 +2112,17 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
     block = 16
     hi = seq_len if prompt_lens is None else prompt_lens[1]
     ctx = -(-(hi + decode_max_new) // block) * block if decode_max_new else 0
-    ex = GraftExecutor(plan0, params, cfg, transport=tp, telemetry=tel,
-                       decode_ctx=ctx, kv_blocks=8 * ctx // block,
-                       kv_block_tokens=block, device=params["embed"].device)
+    pools = dict(decode_ctx=ctx, kv_blocks=8 * ctx // block,
+                 kv_block_tokens=block, device=params["embed"].device)
+    if mode == "socket":
+        ex = RemoteExecutor(plan0, params, cfg, transport=tp,
+                            advertise_host=advertise_host,
+                            launcher=launcher, telemetry=tel,
+                            beacon_interval_s=1.0 if tel.enabled else 0.0,
+                            log=say, **pools)
+    else:
+        ex = GraftExecutor(plan0, params, cfg, transport=tp, telemetry=tel,
+                           **pools)
 
     def prompt(rng) -> np.ndarray:
         n = seq_len if prompt_lens is None \
@@ -1783,11 +2131,20 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
 
     submitted: list = []                         # [(req, p)] for numerics
     decoded: list = []                           # [(req, max_new)]
-    server = GraftServer(ex, controller=ctl, book=book)
+    if frontends > 1 or shed_budget_frac is not None:
+        from repro_torch.serving.fleet import GraftFleet
+        policy = ShedPolicy(budget_frac=shed_budget_frac) \
+            if shed_budget_frac is not None else None
+        server = GraftFleet(ex, n_frontends=max(frontends, 1),
+                            controller=ctl, book=book, shed_policy=policy,
+                            router=router)
+    else:
+        server = GraftServer(ex, controller=ctl, book=book)
     server.start()
     say(f"[serve-loop] {cfg.name}: {len(frags)} clients over {mode} "
         f"transport, {seconds:.1f}s wall-clock, "
-        f"{ex.n_stage_pools} stage pools, 1 front-end(s)")
+        f"{ex.n_stage_pools} stage pools, "
+        f"{max(frontends, 1)} front-end(s)")
     try:
         if warmup:                               # first calls of each shape
             rng = np.random.RandomState(seed)
@@ -1796,7 +2153,9 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
                 server.submit(req, f.p, f.t)
             if not server.join(timeout=600.0):
                 raise RuntimeError("warmup requests never completed")
-            say(f"[serve-loop] warmup done ({server.mark()} requests)")
+            m = server.mark()
+            n_warm = sum(m.values()) if isinstance(m, dict) else m
+            say(f"[serve-loop] warmup done ({n_warm} requests)")
         mark = server.mark()
         t_start = time.monotonic()
         stop_at = t_start + seconds
@@ -1839,11 +2198,15 @@ def run_serve_loop(*, arch: str = "qwen3-1.7b", mode: str = "inprocess",
         drained = server.join(timeout=600.0)
         report = server.report(since=mark)
         report["drained"] = drained
+        report.setdefault("steals", 0)
         report["controller_replans"] = ctl.stats["replans"] - t_traffic0
         report["controller_triggers"] = dict(ctl.stats["triggers"])
         report["controller_refused"] = ctl.stats["refused"]
         report["plan_in_sync"] = \
             plan_pools(ctl.current_plan) == ex.pool_specs()
+        if mode == "socket":
+            # the workers' kernel launches, read while they are up
+            report["worker_launches"] = ex.kernel_launches()
         report["wall_s"] = time.monotonic() - t_start
         if tel.enabled:
             ex.merge_telemetry(tel)

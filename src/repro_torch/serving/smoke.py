@@ -135,6 +135,116 @@ def check_against_monolithic(cfg, params, reqs, *, atol=5e-5,
     return worst
 
 
+# ---------------------------------------------------------------------------
+# route smoke: weighted routing + cross-front-end work stealing
+# ---------------------------------------------------------------------------
+
+def run_route_smoke(*, arch: str = DEFAULT_ARCH, seq_len: int = DEFAULT_SEQ,
+                    seed: int = 0, n_hot: int = 4,
+                    budget_ms: float = 5000.0, log=None,
+                    device=None) -> dict:
+    """Blocking CI smoke: the routing subsystem end-to-end.
+
+    Two front-ends over one shared pool under the weighted router. One
+    front-end is wedged mid-traffic (drivers stop consuming, host marked
+    unhealthy) with a skewed burst queued against it — the survivor must
+    STEAL the queued-not-in-flight work through the fleet balancer and
+    complete it with exact numerics, nothing shed and nothing doubled.
+    Returns the fleet report (with ``numerics_ok``); raises on a
+    stranded run. ``device`` None runs on the card and raises without
+    one."""
+    import time
+
+    from repro_torch.serving.executor import GraftExecutor, ServeRequest
+    from repro_torch.serving.fleet import GraftFleet
+    from repro_torch.serving.router import rendezvous_route
+    from repro_torch.serving.transport import InProcessTransport
+
+    say = log if log is not None else (lambda *_: None)
+    cfg, book, params = smoke_setup(arch, seq_len=seq_len, seed=seed,
+                                    n_layers=3, device=device)
+    # one client per front-end under HRW, all entering the shared pool
+    fes = ["fe0", "fe1"]
+    frags, got, i = [], {fe: 0 for fe in fes}, 0
+    while min(got.values()) < 1 and i < 10_000:
+        name = f"rs{i}"
+        fe = rendezvous_route(name, fes)
+        if got[fe] < 1:
+            got[fe] += 1
+            frags.append(Fragment(cfg.name, p=1, t=budget_ms, q=30.0,
+                                  client=name))
+        i += 1
+    plan = mixed_depth_plan(cfg, book, frags, s=1, batch=4)
+    ex = GraftExecutor(plan, params, cfg, transport=InProcessTransport(),
+                       device=params["embed"].device)
+    fleet = GraftFleet(ex, n_frontends=len(fes), book=book).start()
+    rng = np.random.RandomState(seed)
+
+    def _reqs(frag, n):
+        return [(ServeRequest(
+            client=frag.client,
+            tokens=rng.randint(0, cfg.vocab_size,
+                               seq_len).astype(np.int32)), frag.p)
+            for _ in range(n)]
+
+    t0 = time.monotonic()
+    try:
+        warm = [r for f in frags for r in _reqs(f, 1)]
+        for req, p in warm:
+            fleet.submit(req, p, budget_ms)
+        if not fleet.join(timeout=300.0):
+            raise RuntimeError("route smoke: warm round never drained")
+        table = fleet.routing_table([f.client for f in frags])
+        hot = frags[0]
+        victim_fe = table[hot.client]
+        victim = fleet.frontend(victim_fe)
+        say(f"[route-smoke] wedging {victim_fe} with {n_hot} queued "
+            f"requests; survivor must steal")
+        for drv in victim._drivers.values():
+            drv.batcher.pause()
+        doomed = _reqs(hot, n_hot)
+        for req, p in doomed:          # accepted by victim BEFORE the mark
+            victim.submit(req, p, budget_ms)
+        deadline = time.monotonic() + 30.0
+        while victim.n_queued < len(doomed):
+            if time.monotonic() > deadline:
+                raise RuntimeError("route smoke: burst never queued on "
+                                   "the wedged front-end")
+            time.sleep(0.005)
+        fleet.set_health(victim_fe, False)
+        # the next control tick priority-steals the wedged queue
+        while fleet.stats["steals"] < len(doomed):
+            if time.monotonic() > deadline:
+                raise RuntimeError("route smoke: nothing stolen from the "
+                                   "wedged front-end")
+            time.sleep(0.005)
+        if not fleet.join(timeout=300.0):
+            raise RuntimeError("route smoke: stolen work never completed")
+        for drv in victim._drivers.values():
+            drv.batcher.resume()
+        fleet.set_health(victim_fe, True)
+        report = fleet.report()
+    finally:
+        fleet.stop(drain=False, timeout=10.0)
+        ex.close()
+    report["wall_s"] = time.monotonic() - t0
+    done = warm + doomed
+    try:
+        report["numerics_max_abs"] = check_against_monolithic(cfg, params,
+                                                              done)
+        report["numerics_ok"] = True
+    except AssertionError as e:
+        report["numerics_ok"] = False
+        report["numerics_error"] = str(e)[:500]
+    report["numerics_checked"] = len(done)
+    say(f"[route-smoke] served={report['served']} "
+        f"steals={report['steals']} shed={report['shed']} "
+        f"router={report['router']} "
+        f"numerics_ok={report['numerics_ok']} "
+        f"({report['wall_s']:.1f}s)")
+    return report
+
+
 def check_steps_against_forward(cfg, params, tokens, n_steps: int, *,
                                 atol=1e-4, rtol=1e-3) -> float:
     """Prefill all but the last ``n_steps`` tokens, then teacher-force

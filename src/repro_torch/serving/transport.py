@@ -65,6 +65,7 @@ __all__ = [
 
 _LEN = struct.Struct(">Q")
 DEFAULT_MAX_FRAME = 1 << 30          # 1 GiB: far above any smoke activation
+LARGE_FRAME_BYTES = 1 << 16          # bodies this large are sent unjoined
 ZEROCOPY_MIN_BYTES = 1 << 16         # arrays >= 64 KiB decode as views into
                                      # the frame buffer (no per-array copy);
                                      # smaller ones copy so they stay
@@ -93,17 +94,23 @@ class TruncatedFrameError(FrameError):
 # msgpack body <-> python, with exact ndarray round-trip
 # ---------------------------------------------------------------------------
 
+def _raw_bytes(a: np.ndarray) -> memoryview:
+    """A contiguous array's bytes as a flat view: msgpack copies them into
+    the frame once, with no intermediate ``tobytes`` copy."""
+    return memoryview(a.reshape(-1)).cast("B")
+
+
 def _pack_default(obj):
     if isinstance(obj, torch.Tensor):
         t = obj.detach().contiguous().cpu()
         raw = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
         return {"__pt__": 1, "dtype": str(t.dtype).removeprefix("torch."),
-                "shape": list(t.shape), "data": raw.numpy().tobytes()}
+                "shape": list(t.shape), "data": _raw_bytes(raw.numpy())}
     if isinstance(obj, np.ndarray):
         # ascontiguousarray promotes 0-d to 1-d: keep the ORIGINAL shape
         a = np.ascontiguousarray(obj)
         return {"__nd__": 1, "dtype": a.dtype.str, "shape": list(obj.shape),
-                "data": a.tobytes()}
+                "data": _raw_bytes(a)}
     if isinstance(obj, (np.generic,)):          # numpy scalars
         return obj.item()
     raise TypeError(f"unencodable type {type(obj)!r}")
@@ -217,14 +224,19 @@ def kv_frame_nbytes(frame: dict) -> int:
     return n + 64
 
 
-def encode_frame(msg: dict, *, max_frame_bytes: int = DEFAULT_MAX_FRAME
-                 ) -> bytes:
-    """``msg`` (msgpack-able dict, tensors and ndarrays allowed) ->
-    framed bytes."""
+def _encode_body(msg: dict, max_frame_bytes: int) -> bytes:
     body = msgpack.packb(msg, default=_pack_default, use_bin_type=True)
     if len(body) > max_frame_bytes:
         raise FrameError(f"frame of {len(body)} bytes exceeds "
                          f"max_frame_bytes={max_frame_bytes}")
+    return body
+
+
+def encode_frame(msg: dict, *, max_frame_bytes: int = DEFAULT_MAX_FRAME
+                 ) -> bytes:
+    """``msg`` (msgpack-able dict, tensors and ndarrays allowed) ->
+    framed bytes."""
+    body = _encode_body(msg, max_frame_bytes)
     return _LEN.pack(len(body)) + body
 
 
@@ -285,10 +297,16 @@ def read_frame(readable, *, max_frame_bytes: int = DEFAULT_MAX_FRAME
 
 def write_frame(sock: socket.socket, msg: dict, *,
                 max_frame_bytes: int = DEFAULT_MAX_FRAME) -> int:
-    """Frame + send; returns bytes written."""
-    data = encode_frame(msg, max_frame_bytes=max_frame_bytes)
-    sock.sendall(data)
-    return len(data)
+    """Frame + send; returns bytes written. A large body goes out after
+    its length prefix rather than copied behind it."""
+    body = _encode_body(msg, max_frame_bytes)
+    header = _LEN.pack(len(body))
+    if len(body) < LARGE_FRAME_BYTES:
+        sock.sendall(header + body)
+    else:
+        sock.sendall(header)
+        sock.sendall(body)
+    return len(header) + len(body)
 
 
 # ---------------------------------------------------------------------------

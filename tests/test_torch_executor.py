@@ -337,11 +337,14 @@ def test_port_imports_neither_jax_nor_repro():
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "print(bad)\n"
         "print(all(m in sys.modules for m in ('repro_torch.serving.server', "
-        "'repro_torch.serving.controller')))\n")
+        "'repro_torch.serving.controller', 'repro_torch.serving.remote', "
+        "'repro_torch.serving.fleet', 'repro_torch.launch.serve', "
+        "'repro_torch.core.baselines', 'repro_torch.core.measured')))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
     n, bad, runtime = out.stdout.strip().splitlines()
     assert int(n) >= 65, out.stdout
     assert bad == "[]", bad
-    assert runtime == "True", "the server runtime was not imported"
+    assert runtime == "True", "the server runtime, fleet, remote " \
+        "workers, serving launcher or baselines were not imported"

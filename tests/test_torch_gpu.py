@@ -707,3 +707,114 @@ def test_server_one_shot_drivers_beside_decode_on_one_card(cuda):
         assert req.out_tokens == reference_decode(cfg, params, req.tokens,
                                                   12)
     check_against_monolithic(cfg, params, oneshot)
+
+
+# ------------------------------------------------- workers and the fleet
+
+def test_remote_workers_on_the_card_equal_the_in_process_pools(cuda):
+    """Two pool workers on cuda:0 (each its own process and CUDA
+    context, holding only its pool's parameter slice) serve what the
+    in-process pools serve, float32 ``atol=5e-5, rtol=1e-3``; the
+    forward kernels launch inside the workers, whose counters ride back
+    on the stats op."""
+    from repro_torch.core import Fragment, GraftPlanner
+    from repro_torch.serving import (GraftExecutor, RemoteExecutor,
+                                     SocketTransport)
+    from repro_torch.serving.smoke import (check_against_monolithic,
+                                           smoke_requests, smoke_setup)
+
+    cfg, book, params = smoke_setup("qwen3-1.7b", n_layers=4)
+    frags = [Fragment(cfg.name, 0, 4000.0, 30.0, client="c0"),
+             Fragment(cfg.name, 2, 4000.0, 30.0, client="c1")]
+    plan = GraftPlanner(book).plan(frags)
+    reqs_a = smoke_requests(cfg, frags, seq_len=48, seed=3)
+    reqs_b = smoke_requests(cfg, frags, seq_len=48, seed=3)
+    with GraftExecutor(plan, params, cfg) as ex:
+        ex.serve(reqs_a)
+    with RemoteExecutor(plan, params, cfg,
+                        transport=SocketTransport()) as rex:
+        assert rex.n_stage_pools == 2
+        assert all(s["device"].startswith("cuda")
+                   for s in rex.pool_stats().values())
+        rex.kernel_launches(reset=True)
+        rex.serve(reqs_b)
+        launches = rex.kernel_launches()
+    for (a, _), (b, _) in zip(reqs_a, reqs_b):
+        np.testing.assert_allclose(b.result.numpy(), a.result.numpy(),
+                                   atol=5e-5, rtol=1e-3)
+    check_against_monolithic(cfg, params, reqs_b)
+    assert launches["flash_attention"] > 0, launches     # packed pools
+
+
+def test_fleet_decode_tokens_on_the_card_equal_a_single_server(cuda):
+    """Two front-ends of a GraftFleet over one decode pool on the card
+    give every stream the tokens a lone GraftServer gives it."""
+    from repro_torch.core import Fragment
+    from repro_torch.serving import (GraftExecutor, GraftFleet, GraftServer,
+                                     ServeRequest)
+    from repro_torch.serving.smoke import decode_plan, smoke_setup
+
+    cfg, book, params = smoke_setup("qwen3-1.7b", n_layers=4)
+    frags = [Fragment(cfg.name, 0, 4000.0, 30.0, client=f"d{i}")
+             for i in range(4)]
+    rng = np.random.RandomState(1)
+    prompts = [(f"d{i % 4}", rng.randint(0, cfg.vocab_size,
+                                         int(rng.randint(9, 40)))
+                .astype(np.int32)) for i in range(8)]
+
+    def run(make):
+        ex = GraftExecutor(decode_plan(cfg, book, frags, batch=4), params,
+                           cfg, decode_ctx=96, kv_blocks=64,
+                           kv_block_tokens=8)
+        srv = make(ex).start()
+        reqs = [ServeRequest(client=c, tokens=t, max_new_tokens=10)
+                for c, t in prompts]
+        try:
+            for r in reqs:
+                srv.submit(r, 0, 4000.0)
+            assert srv.join(timeout=300.0)
+            rep = srv.report()
+        finally:
+            srv.stop(drain=False, timeout=10.0)
+            ex.close()
+        assert rep["decode_local"] == 0 and rep["shed"] == 0
+        return [r.out_tokens for r in reqs], rep
+
+    single, _ = run(lambda ex: GraftServer(ex, book=book))
+    fleet, rep = run(lambda ex: GraftFleet(ex, n_frontends=2, book=book))
+    assert fleet == single
+    assert sum(1 for fe in rep["frontends"].values() if fe["served"]) == 2
+
+
+def test_build_lock_compiles_each_source_once_across_processes(
+        cuda, tmp_path):
+    """Two processes that call ``build_all`` at once on a cold build
+    directory: one compiles, the other waits on the file lock and finds
+    the library built."""
+    import ctypes
+    import json
+    import os
+    import subprocess
+    import sys
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "tiny.cu").write_text(
+        'extern "C" __global__ void tiny_kernel(int *x) { x[0] = 7; }\n'
+        'extern "C" int tiny_entry() { return 7; }\n')
+    out_dir = tmp_path / "kernels"
+    code = ("import json; from pathlib import Path; "
+            "from repro_torch.kernels import build; "
+            f"build.CSRC = Path({str(csrc)!r}); "
+            f"build.BUILD_DIR = Path({str(out_dir)!r}); "
+            "print(json.dumps(sorted(build.build_all())))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for _ in range(2)]
+    outs = [p.communicate(timeout=600) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e for _, e in outs]
+    built = sorted(json.loads(o.strip().splitlines()[-1]) for o, _ in outs)
+    assert built == [[], ["tiny"]]
+    (lib,) = out_dir.glob("tiny-*.so")
+    assert ctypes.CDLL(str(lib)).tiny_entry() == 7

@@ -372,18 +372,21 @@ def test_serve_loop_decode_client_and_numerics(smoke):
 
 
 def test_serve_loop_unported_modes_and_no_card_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_serve_loop(mode="socket", seconds=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_serve_loop(frontends=2, seconds=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_serve_loop(shed_budget_frac=0.1, seconds=0.1, device="cpu")
+    """The socket mode and the fleet topology (once unported) run like
+    the in-process loop: an unknown mode is refused, and without a card
+    every entry point raises instead of falling back to the CPU."""
+    with pytest.raises(ValueError, match="unknown mode"):
+        run_serve_loop(mode="carrier-pigeon", seconds=0.1, device="cpu")
     if torch.cuda.is_available():
         return
-    for fn in (run_serve_loop, tsmoke.run_decode_smoke,
-               tsmoke.run_disagg_smoke):
+    for kw in ({}, {"mode": "socket"}, {"frontends": 2},
+               {"shed_budget_frac": 0.1}):
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            fn(seconds=0.1) if fn is run_serve_loop else fn()
+            run_serve_loop(seconds=0.1, **kw)
+    for fn in (tsmoke.run_decode_smoke, tsmoke.run_disagg_smoke,
+               tsmoke.run_route_smoke):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
 
 
 def test_spans_and_audit_across_mid_traffic_replan(smoke, tmp_path):
