@@ -19,9 +19,11 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    window, non-causal, GQA groups 1, 4 and 5, head_dim 128/64/32,
    segments starting mid-tile, segment ids out of order and recurring,
    S = 64k + 1, a window crossed with a ragged last tile, q, k and v as
-   slices of one fused QKV buffer; for the decode kernel ragged Sk, a
-   ring-buffer kv_pos with -1 holes, windows, hymba's GQA 5 at hd 64
-   with its window crossed; for the two recurrent scans T = 1, a prime
+   slices of one fused QKV buffer, the moe family's layouts (olmoe's 16
+   heads of 16 kv at hd 128 packed and padded, llama4-scout's 40 of 8);
+   for the decode kernel ragged Sk, a ring-buffer kv_pos with -1 holes,
+   windows, hymba's GQA 5 at hd 64 with its window crossed, olmoe's and
+   llama4-scout's decode steps; for the two recurrent scans T = 1, a prime
    T, a T that is not a multiple of 32, a nonzero input state and decays
    far past the clamp (in one chunk, and over four 64-step chunks with a
    ragged tail), for the WKV scan also T = 64 and 65 and head dims 16 and
@@ -119,7 +121,21 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    ``decode_step``s held against the forward at those positions (the
    WKV state the scan kernel hands to decode); then bfloat16 waves, the
    last one profiled. ``wkv6_scan`` must launch.
-9. train   — full-width qwen3-1.7b (28 layers, random weights) on the
+9. moe     — full-width olmoe-1b-7b (16 layers, 64 experts of 1024,
+   top 8) in float32: each layer's MoE on real block inputs (a forward's)
+   with the grouped dispatch at a dropless capacity against the dense
+   one, and how many of those routes the published capacity factor 1.25
+   drops; the serve phase's path with the dense dispatch (packed pools)
+   and again with the grouped one at the dropless capacity (padded
+   pools), every result held against the forward; the decode phase's
+   streams at the published config (a dispatch that can drop shares no
+   prefix: no hit, the decode pool recomputes each prompt), token for
+   token; then bfloat16 waves at the published config (the warm-up
+   wave's drops per layer printed) and a decode step, profiled with the
+   kernels inside ``moe_forward`` as their own group. Then
+   llama4-scout (published widths, 2 of 48 layers: top 1 plus a shared
+   expert, GQA 5) through the block check and both dispatches' waves.
+10. train  — full-width qwen3-1.7b (28 layers, random weights) on the
    ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
    off: the loss and every gradient leaf through the kernels against
    autograd of the plain attention (``ops.attention`` swapped here
@@ -134,7 +150,8 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    timed, and one profiled.
 Each model is freed before the next one loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
-the float32 decode runs (single-pool and disaggregated) of each model,
+the float32 decode runs (single-pool and disaggregated) of each model
+(both dispatches' waves for the moe models),
 the float32 server loop and its disaggregated streams, the float32
 remote executor's waves and fleet loop (launches in the workers and in
 this process), and the float32 AdamW steps and timed bfloat16 steps, each path's
@@ -256,6 +273,13 @@ CASES = [
     ("fused QKV slices", 2, 160, 160, 8, 2, 128, True, 0, None, True),
     ("unsorted, recurring segment ids", 1, 300, 300, 8, 2, 64, True, 0,
      [(5, 40), (2, 90), (5, 70), (0, 60), (9, 40)], False),
+    # the moe family's head layouts: olmoe (GQA 1, hd 128) packed and
+    # padded, llama4-scout (GQA 5, hd 128)
+    ("olmoe packed, GQA 1", 1, 2048, 2048, 16, 16, 128, True, 0,
+     [300, 517, 211, 489, 250, 181], False),
+    ("olmoe prompt, GQA 1", 2, 512, 512, 16, 16, 128, True, 0, None, False),
+    ("llama4 prompt, GQA 5", 1, 1024, 1024, 40, 8, 128, True, 0, None,
+     False),
 ]
 
 
@@ -349,6 +373,10 @@ DECODE_CASES = [
      False, 0),
     ("hymba GQA 5, hd 64, window 1024 crossed, ragged Sk", 3, 1100, 25, 5,
      64, [1099, 700, 30], False, 1024),
+    ("olmoe decode, GQA 1", 4, 512, 16, 16, 128, [511, 300, 64, 5], False,
+     0),
+    ("llama4 decode, GQA 5", 4, 512, 40, 8, 128, [511, 300, 64, 5], False,
+     0),
     DECODE_MAIN,
 ]
 
@@ -1056,21 +1084,35 @@ def profile_run(label, run) -> float:
     synchronize) under ``torch.profiler`` and print where the device
     time went: kernel time by group, the device's busy share of the wall
     time (profiling slows the host, so the share reads low), the top
-    kernels and each attention kernel. Returns the device time in µs."""
+    kernels and each attention kernel. Kernels launched inside a
+    ``moe_forward`` call (the router, the sort, the gathers and
+    scatters, the expert products) form the "moe" group, whatever their
+    name. Returns the device time in µs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            moe_calls(moe_ranged):
         wall = run()
-    groups = {"attention kernels": 0.0, "scan kernels": 0.0, "matmul": 0.0,
-              "memcpy/memset": 0.0, "other kernels": 0.0}
+    groups = {"attention kernels": 0.0, "scan kernels": 0.0, "moe": 0.0,
+              "matmul": 0.0, "memcpy/memset": 0.0, "other kernels": 0.0}
+    in_moe = moe_kernel_us(prof)
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = float(getattr(ev, "self_device_time_total", 0.0))
         name = ev.key
+        if name == MOE_RANGE:       # the range's span on the device's
+            continue                # timeline, not a kernel
         low = name.lower()
+        moe_us = min(us, in_moe.get(name, 0.0))
+        if moe_us > 0:
+            groups["moe"] += moe_us
+            rows.append((moe_us, name, "moe"))
+            us -= moe_us
+        if us <= 0:
+            continue
         if any(t in name for t in ATTENTION_NAMES):
             g = "attention kernels"
         elif any(t in name for t in SCAN_NAMES):
@@ -1097,7 +1139,25 @@ def profile_run(label, run) -> float:
     for us, name, g in sorted(rows, reverse=True):
         if g == "attention kernels":
             print(f"    attention: {us / 1e3:.2f} ms {name[:90]}")
+    for us, name, _ in sorted(r for r in rows if r[2] == "moe")[::-1][:5]:
+        print(f"    moe: {us / 1e3:.2f} ms {name[:90]}")
     return total
+
+
+def moe_kernel_us(prof) -> dict:
+    """Device µs by kernel name of the kernels launched inside a
+    ``MOE_RANGE`` (an op whose chain of CPU parents holds the range)."""
+    out: dict = {}
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        a = ev
+        while a is not None and a.name != MOE_RANGE:
+            a = a.cpu_parent
+        if a is not None:
+            for k in ev.kernels:
+                out[k.name] = out.get(k.name, 0.0) + float(k.duration)
+    return out
 
 
 def check_results(cfg, params, reqs, label):
@@ -1118,31 +1178,39 @@ def check_results(cfg, params, reqs, label):
 
 
 def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
-                n_long=0, exact=False, after_fp32=None) -> dict:
-    """Serve one model's path at full width; returns the kernels' launch
-    counts over the two float32 waves. ``need`` names the kernels that
-    must have launched there; ``exact`` gives the float32 waves
-    ``EXACT_LENGTHS`` prompts (the bfloat16 waves keep lo..hi with
-    ``n_long`` long ones); ``after_fp32(cfg, params)`` runs further
-    float32 checks before the float32 model is freed."""
+                n_long=0, exact=False, after_fp32=None, n_layers=None,
+                dispatches=(("", None, None),)) -> dict:
+    """Serve one model's path at full width (``n_layers`` cuts its
+    depth); returns the kernels' launch counts over the float32 waves.
+    ``need`` names the kernels that must have launched there; ``exact``
+    gives the float32 waves ``EXACT_LENGTHS`` prompts (the bfloat16
+    waves keep lo..hi with ``n_long`` long ones); ``after_fp32(cfg,
+    params)`` runs further float32 checks before the float32 model is
+    freed. ``dispatches`` are (label, edit, need) triples: each serves
+    its own two float32 waves with the config ``edit(cfg)`` (None: as
+    published) on the same weights (a moe dispatch or capacity, which
+    the weights do not depend on), where the kernels ``need`` (None:
+    the phase's) must launch. The bfloat16 waves serve the config as
+    published; for a moe model the warm-up wave counts each layer's
+    dropped tokens."""
     import numpy as np
     import torch
-    from repro_torch.core import Fragment, GraftPlanner
-    from repro_torch.serving import GraftExecutor, InProcessTransport
-    from repro_torch.serving.smoke import mixed_depth_plan, smoke_setup
+    from repro_torch.core import Fragment
+    from repro_torch.serving.smoke import smoke_setup
 
     t0 = time.perf_counter()
     cfg, book, params = smoke_setup(arch, full_width=True, dtype="float32",
-                                    seq_len=512, device=device)
+                                    seq_len=512, n_layers=n_layers,
+                                    device=device)
     torch.cuda.synchronize()
     print(f"  {cfg.name} ({cfg.family}): d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, head_dim "
           f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
-          f"{cfg.n_layers} layers, window {cfg.sliding_window}, {cfg.dtype}; "
-          f"init {time.perf_counter() - t0:.1f} s")
+          f"{cfg.n_layers} layers, window {cfg.sliding_window}, {cfg.dtype}"
+          f"{moe_text(cfg)}; init {time.perf_counter() - t0:.1f} s")
     L = cfg.n_layers
     rng = np.random.RandomState(seed)
-    points = sorted(int(p) for p in rng.choice(L, size=6, replace=False))
+    points = sorted(int(p) for p in rng.choice(L, size=6, replace=L < 6))
     frags = [Fragment(cfg.name, p=p, t=float(40.0 + 40.0 * rng.rand()),
                       q=30.0, client=f"c{i}") for i, p in enumerate(points)]
     print(f"  clients' partition points: {points}")
@@ -1151,6 +1219,39 @@ def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
               for f in frags]
     wave = dict(hi=hi, n_long=n_long)
     wave32 = dict(wave, exact=exact)
+    launches: dict = {}
+    for label, edit, v_need in dispatches:
+        c = cfg if edit is None else edit(cfg)
+        if label:
+            print(f"  float32 waves, {label}{moe_text(c)}")
+        got = serve_fp32_waves(c, book, params, frags, frags2, s, rng,
+                               wave32, device)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        if not all(got[n] > 0 for n in v_need or need):
+            fail(f"a kernel of the serving path never launched: {got}")
+    if after_fp32 is not None:
+        after_fp32(cfg, params)
+    del params
+    free_device()
+
+    # the same path in bfloat16, timed (a warm-up wave first)
+    cfg16, _, params16 = smoke_setup(arch, full_width=True,
+                                     dtype="bfloat16", seq_len=512,
+                                     n_layers=n_layers, device=device)
+    serve_bf16_waves(cfg16, book, params16, frags2, s, rng, wave, device)
+    return launches
+
+
+def serve_fp32_waves(cfg, book, params, frags, frags2, s, rng, wave32,
+                     device) -> dict:
+    """The planner's plan for ``frags``, then ``apply_plan`` onto
+    re-aligned depth-2 chains cut at ``s`` for ``frags2``: a wave on
+    each, every result held against the monolithic forward. Returns the
+    kernels' launch counts over the two waves (the main path)."""
+    import torch
+    from repro_torch.core import GraftPlanner
+    from repro_torch.serving import GraftExecutor, InProcessTransport
+    from repro_torch.serving.smoke import mixed_depth_plan
     plan = GraftPlanner(book).plan(frags)
     reset_launches()                        # the main path starts here
     with GraftExecutor(plan, params, cfg,
@@ -1176,38 +1277,171 @@ def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
         print(f"    pool {key[1:]}: batches {st['n_batches']}, real tokens "
               f"{st['real_tokens']}, pad tokens {st['pad_tokens']}, "
               f"packed {st['packed']}, device {st['device']}")
-    if not all(launches[n] > 0 for n in need):
-        fail(f"a kernel of the serving path never launched: {launches}")
     if not any(len(c) == 2 for c in chains.values()):
         fail("the re-aligned plan has no depth-2 chain")
     check_results(cfg, params, reqs1, "wave 1")
     check_results(cfg, params, reqs2, "wave 2")
-    if after_fp32 is not None:
-        after_fp32(cfg, params)
-    del params
-    free_device()
+    return launches
 
-    # the same path in bfloat16, timed (a warm-up wave first)
-    cfg16, _, params16 = smoke_setup(arch, full_width=True,
-                                     dtype="bfloat16", seq_len=512,
-                                     device=device)
+
+def serve_bf16_waves(cfg, book, params, frags2, s, rng, wave,
+                     device) -> None:
+    """The re-aligned plan in bfloat16: a warm-up wave (for a moe model
+    under a hook that counts each layer's dropped tokens), a timed wave,
+    and a wave under ``torch.profiler``."""
+    import torch
+    from repro_torch.serving import GraftExecutor, InProcessTransport
+    from repro_torch.serving.smoke import mixed_depth_plan
     reset_launches()
-    with GraftExecutor(mixed_depth_plan(cfg16, book, frags2, s=s, batch=8),
-                       params16, cfg16,
+    drops: dict = {}
+    counting = moe_calls(drop_counter(params, drops)) \
+        if cfg.family == "moe" else contextlib.nullcontext()
+    with GraftExecutor(mixed_depth_plan(cfg, book, frags2, s=s, batch=8),
+                       params, cfg,
                        InProcessTransport(max_frame_bytes=MAX_FRAME_BYTES),
                        device=device) as ex:
-        serve_wave(ex, make_wave(cfg16, frags2, rng, **wave),
-                   "bf16 warm-up wave")
-        reqs3 = make_wave(cfg16, frags2, rng, **wave)
+        with counting:
+            serve_wave(ex, make_wave(cfg, frags2, rng, **wave),
+                       "bf16 warm-up wave")
+        reqs3 = make_wave(cfg, frags2, rng, **wave)
         serve_wave(ex, reqs3, "bf16 wave")
-        reqs4 = make_wave(cfg16, frags2, rng, **wave)
+        reqs4 = make_wave(cfg, frags2, rng, **wave)
         profile_run("bf16 profiled wave",
                     lambda: serve_wave(ex, reqs4, "bf16 profiled wave"))
     print(f"  kernel launches, bf16 waves: {read_launches()}")
+    if drops:
+        print_drops(drops, "bf16 warm-up wave")
     for req, _ in reqs3:
         if not torch.isfinite(req.result.float()).all():
             fail(f"bf16 wave: {req.client} result is not finite")
-    return launches
+
+
+# ---------------------------------------------------------------------------
+# the moe family: hooks on the port's moe_forward, and the block check
+# ---------------------------------------------------------------------------
+
+# the profiler range each moe_forward call runs under in a profiled run
+MOE_RANGE = "moe_forward"
+# block inputs for the grouped-against-dense check: one prompt this long
+MOE_BLOCK_TOKENS = 512
+
+
+def moe_text(cfg) -> str:
+    """A moe config's routing, dispatch and capacity, for the log."""
+    if cfg.family != "moe":
+        return ""
+    e = cfg.moe
+    return (f"; {e.n_experts} experts, top {e.top_k}, "
+            f"{e.n_shared_experts} shared, d_ff_expert {e.d_ff_expert}, "
+            f"{cfg.moe_impl} dispatch, capacity factor {e.capacity_factor:g}")
+
+
+@contextlib.contextmanager
+def moe_calls(hook):
+    """Send every call of the port's ``moe_forward`` (the blocks of the
+    forward, the fragments, prefill and decode) through ``hook(inner,
+    p, cfg, x, **kw)`` inside the block."""
+    import functools
+    from repro_torch.models import moe as moe_mod
+    inner = moe_mod.moe_forward
+    moe_mod.moe_forward = functools.partial(hook, inner)
+    try:
+        yield
+    finally:
+        moe_mod.moe_forward = inner
+
+
+def moe_ranged(inner, p, cfg, x, **kw):
+    """A ``moe_calls`` hook: the call under the ``MOE_RANGE`` profiler
+    range, so ``profile_run`` can tell its kernels (the sort, the
+    gathers and scatters, the expert products) from the rest."""
+    import torch
+    with torch.profiler.record_function(MOE_RANGE):
+        return inner(p, cfg, x, **kw)
+
+
+def drop_counter(params, drops: dict):
+    """A ``moe_calls`` hook adding each call's dropped and routed (token,
+    choice) pairs to ``drops[layer]``, the layer told by where its
+    router view lies in the stacked router tensor."""
+    from repro_torch.models import moe as moe_mod
+    routers = params["blocks"]["moe"]["router"]
+    base = routers.data_ptr()
+    step = routers.stride(0) * routers.element_size()
+
+    def hook(inner, p, cfg, x, **kw):
+        layer = (p["router"].data_ptr() - base) // step
+        _, eidx, _ = moe_mod._route(p, cfg, x.reshape(-1, x.shape[-1]))
+        keep = moe_mod.dispatch(cfg, eidx)[2]
+        d, n = drops.get(layer, (0, 0))
+        drops[layer] = (d + int((~keep).sum()), n + keep.numel())
+        return inner(p, cfg, x, **kw)
+    return hook
+
+
+def print_drops(drops: dict, label) -> None:
+    per = [drops[k] for k in sorted(drops)]
+    d, n = sum(a for a, _ in per), sum(b for _, b in per)
+    print(f"  {label}: dropped (token, choice) pairs per layer (pads "
+          f"included) {[a for a, _ in per]} of {[b for _, b in per]} routed"
+          f" ({d} of {n}, {100 * d / max(n, 1):.2f}%)")
+
+
+def dropless_capacity(cfg):
+    """``cfg`` at capacity factor E / k: the capacity is then N, every
+    expert's load fits, and the grouped dispatch drops nothing."""
+    import dataclasses
+    e = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=e.n_experts / e.top_k))
+
+
+def moe_block_check(cfg, params) -> None:
+    """Every layer's MoE on real block inputs (a forward of one prompt
+    at a dropless capacity, factor E / k, so capacity = N): the grouped
+    dispatch against the dense one, then how many of the same routes
+    the published capacity factor would drop."""
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+    from repro_torch.models import moe as moe_mod
+    e = cfg.moe
+    wide = dropless_capacity(cfg)
+    dev = params["embed"].device
+    toks = torch.from_numpy(np.random.RandomState(7).randint(
+        0, cfg.vocab_size, (1, MOE_BLOCK_TOKENS)).astype(np.int32)).to(dev)
+    seen = []
+
+    def capture(inner, p, c, x, **kw):
+        seen.append((p, x))
+        return inner(p, c, x, **kw)
+    with moe_calls(capture):
+        forward(params, wide, toks)
+    worst, margin, drops = 0.0, float("inf"), []
+    for p, x in seen:
+        yg, ag = moe_mod.moe_forward(p, wide, x, impl="grouped")
+        yd, ad = moe_mod.moe_forward(p, wide, x, impl="dense")
+        if not torch.allclose(yg, yd, atol=SERVE_ATOL, rtol=SERVE_RTOL) \
+                or float(ag) != float(ad):
+            e_, r_ = err(yg, yd)
+            fail(f"moe grouped vs dense, layer {len(drops)}: max_abs "
+                 f"{e_:.3e} max_rel {r_:.3e}, aux {float(ag)} vs "
+                 f"{float(ad)}")
+        worst = max(worst, err(yg, yd)[0])
+        _, eidx, probs = moe_mod._route(p, cfg, x.reshape(-1, x.shape[-1]))
+        top = torch.sort(probs, dim=-1, descending=True).values
+        margin = min(margin, float((top[:, e.top_k - 1]
+                                    - top[:, e.top_k]).min()))
+        drops.append(int((~moe_mod.dispatch(cfg, eidx)[2]).sum()))
+    n = MOE_BLOCK_TOKENS * e.top_k
+    print(f"  moe blocks: {len(seen)} layers at {MOE_BLOCK_TOKENS} tokens, "
+          f"capacity {moe_mod.capacity(wide, MOE_BLOCK_TOKENS)} (dropless): "
+          f"grouped equals dense (atol {SERVE_ATOL:g}, rtol {SERVE_RTOL:g}; "
+          f"largest |diff| {worst:.3e}), the aux loss exactly; smallest "
+          f"k-th minus (k+1)-th router probability {margin:.3e}")
+    print(f"  at the published capacity factor {e.capacity_factor:g} "
+          f"(capacity {moe_mod.capacity(cfg, MOE_BLOCK_TOKENS)}) the same "
+          f"routes drop {drops} of {n} (token, choice) pairs per layer")
 
 
 def rounding_sweep(depths):
@@ -1234,7 +1468,7 @@ def rounding_sweep(depths):
         for d in depths:
             cut = dataclasses.replace(cfg, n_layers=d)
             head = dict(params, blocks=slice_blocks(params["blocks"], 0, d))
-            want = forward(head, cut, toks)[0]
+            want = forward(head, cut, toks)[0][0]
             got = run_fragment(head, cut, batch, 0, d)[rows // 2, :S]
             diff = (got - want).abs()
             ratio = float((diff / (SERVE_ATOL + SERVE_RTOL
@@ -1244,6 +1478,46 @@ def rounding_sweep(depths):
                   f"|diff| / tolerance {ratio:.3f} (logit std "
                   f"{float(want.std()):.3f})")
     return run
+
+
+def moe_phase(device) -> list:
+    """olmoe-1b-7b at full width, then llama4-scout at its published
+    widths cut to 2 of 48 layers; returns the launch counts of each
+    float32 path: olmoe's serve waves (dense, then dropless grouped
+    dispatch), its decode runs, llama4's serve waves."""
+    import dataclasses
+
+    def dense(cfg):
+        return dataclasses.replace(cfg, moe_impl="dense")
+    # the dense dispatch packs (row 1 on the pools); the grouped one
+    # takes the padded path (row 2 on the pools); row 2 also runs every
+    # client's mobile part [0, p)
+    dispatches = (("dense dispatch (packed)", dense,
+                   ("flash_attention", "flash_attention_lse")),
+                  ("grouped dispatch, dropless capacity (padded)",
+                   dropless_capacity, ("flash_attention_lse",)))
+    runs = []
+    t0 = time.perf_counter()
+    runs.append(serve_phase(device, "olmoe-1b-7b", seed=4, need=(),
+                            dispatches=dispatches,
+                            after_fp32=moe_block_check))
+    free_device()
+    runs.append(decode_phase(device, "olmoe-1b-7b"))
+    print(f"  olmoe-1b-7b: {time.perf_counter() - t0:.1f} s")
+    free_device()
+    t0 = time.perf_counter()
+    runs.append(serve_phase(device, "llama4-scout-17b-a16e", seed=5,
+                            n_layers=MOE_LLAMA4_LAYERS, need=(),
+                            dispatches=dispatches,
+                            after_fp32=moe_block_check))
+    print(f"  llama4-scout-17b-a16e ({MOE_LLAMA4_LAYERS} of 48 layers): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# llama4-scout's depth on the card: 2 of its 48 layers at the published
+# widths are 26 GB in float32 (its 107.8B parameters do not fit)
+MOE_LLAMA4_LAYERS = 2
 
 
 # layers of rwkv6-7b (of 32, full width) for the prefill + decode steps
@@ -1363,23 +1637,26 @@ def decode_phase(device, arch="qwen3-1.7b", *,
                  need=("decode_attention", "flash_attention_lse")) -> dict:
     """Serve one model's decode path; returns the kernels' launch counts
     over the two float32 runs (single-pool, then disaggregated). ``need``
-    names the kernels that must have launched there. A family whose
-    arena shares prompt prefixes (dense) must show prefix hits and KV
-    handoffs taken in; hybrid shares nothing (the arena does not hold
-    its scan state): no hit, and its decode pool ignores the handoff's
+    names the kernels that must have launched there. A model whose
+    arena shares prompt prefixes (``shares_prefixes``: dense, a moe
+    that never drops) must show prefix hits and KV handoffs taken in;
+    hybrid and a moe that can drop share nothing (the arena does not
+    hold hybrid's scan state, and a drop depends on the prompt that
+    wrote the KV): no hit, and the decode pool ignores the handoff's
     blocks and recomputes the prompt."""
     import numpy as np
     import torch
+    from repro_torch.serving.executor import shares_prefixes
     from repro_torch.serving.smoke import reference_decode, smoke_setup
 
     t0 = time.perf_counter()
     cfg, book, params = smoke_setup(arch, full_width=True,
                                     dtype="float32", seq_len=DECODE_CTX,
                                     device=device)
-    shares = cfg.family in ("dense", "moe")
+    shares = shares_prefixes(cfg)
     torch.cuda.synchronize()
-    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, "
-          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; decode_ctx "
+    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}{moe_text(cfg)}"
+          f", allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; decode_ctx "
           f"{DECODE_CTX}, batch {DECODE_BATCH}, {KV_BLOCKS} KV blocks of "
           f"{KV_BLOCK_TOKENS} tokens, {MAX_NEW} new tokens per stream; "
           f"init {time.perf_counter() - t0:.1f} s")
@@ -1432,7 +1709,8 @@ def decode_phase(device, arch="qwen3-1.7b", *,
              f"{dstats['prefill']['decode_active']}")
     print(f"  disaggregated: tokens equal the single-pool run; "
           f"{split['handoffs']} KV handoffs sent, {taken} taken in"
-          f"{'' if shares else ' (hybrid recomputes each prompt)'}, "
+          f"{'' if shares else ' (the decode pool recomputes each prompt)'}"
+          ", "
           "nothing resident on the prefill pool")
     if not all(launches[n] > 0 for n in need):
         fail(f"a kernel of the decode path never launched: {launches}")
@@ -2366,7 +2644,7 @@ def tensor_core_check(logs: dict) -> None:
 
 
 PHASES = ("kernels", "timing", "serve", "decode", "server", "remote",
-          "hybrid", "ssm", "train")
+          "hybrid", "ssm", "moe", "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -2470,6 +2748,10 @@ def main() -> int:
             ssm_steps_check(cfg, params)
         runs.append(serve_phase(device, "rwkv6-7b", seed=3, exact=True,
                                 need=("wkv6_scan",), after_fp32=rwkv_checks))
+    if "moe" in phases:
+        print("== moe")
+        free_device()
+        runs.extend(moe_phase(device))
     if "train" in phases:
         print("== train")
         free_device()
@@ -2480,8 +2762,8 @@ def main() -> int:
         return 0
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, server, remote, hybrid "
-          f"serve, hybrid decode, ssm serve, fp32 train, bf16 train): "
-          f"{runs}")
+          f"serve, hybrid decode, ssm serve, olmoe serve, olmoe decode, "
+          f"llama4 serve, fp32 train, bf16 train): {runs}")
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
     for name, m in (("ssm_scan", ss), ("wkv6_scan", wk)):

@@ -15,8 +15,10 @@ reads the values from before the step).
 The ssm family (rwkv6) carries no KV: its cache is the per-layer WKV
 state and the two token-shift carries. The hybrid family (hymba) carries
 a windowed KV cache plus each layer's SSM conv tail and scan state. Both
-recurrent states are written in place too. The moe, vlm and audio
-branches raise ``NotImplementedError`` naming the slice they belong to.
+recurrent states are written in place too. The moe family's blocks run
+their MoE mlp (``models/moe.py``) on the step's rows or the prompt, as
+the JAX package does. The vlm and audio branches raise
+``NotImplementedError`` naming the slice they belong to.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import torch_dtype
@@ -37,7 +40,6 @@ Tensor = torch.Tensor
 
 # the slice that ports each family's decode path
 _LATER_SLICE = {
-    "moe": "the moe slice (models/moe.py)",
     "vlm": "the vlm/audio slice (models/stubs.py, cross-attention)",
     "audio": "the vlm/audio slice (models/stubs.py, cross-attention)",
 }
@@ -139,7 +141,14 @@ def _block_decode(p: dict, cfg: ModelConfig, x: Tensor, c: dict,
         y = 0.5 * (y + ys)
     x = x + y
     h = nn.apply_norm(p["ln2"], cfg, x)
-    return x + nn.apply_mlp(p["mlp"], cfg, h), c
+    return x + _mlp(p, cfg, h), c
+
+
+def _mlp(p: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
+    """The block's mlp: the MoE (its aux loss dropped) or the dense one."""
+    if cfg.family == "moe":
+        return moe_mod.moe_forward(p["moe"], cfg, h)[0]
+    return nn.apply_mlp(p["mlp"], cfg, h)
 
 
 def _layer_cache_keys(cfg: ModelConfig) -> tuple[str, ...]:
@@ -252,7 +261,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
             y = 0.5 * (y + ys)
         x = x + y
         hn = nn.apply_norm(p_l["ln2"], cfg, x)
-        x = x + nn.apply_mlp(p_l["mlp"], cfg, hn)
+        x = x + _mlp(p_l, cfg, hn)
         if quant:
             k, ks = attn.quantize_kv(k)
             v, vs = attn.quantize_kv(v)

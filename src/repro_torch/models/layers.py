@@ -118,9 +118,11 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig,
-             lead: tuple = ()) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, lead: tuple = (),
+             d_ff: int = 0) -> dict:
+    """The (gated) MLP's weights; ``d_ff`` 0 means ``cfg.d_ff`` (a moe
+    shared expert passes its own width)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     if cfg.gated_mlp:
         p = {"w_gate": dense_init(gen, d, f, dt, lead),

@@ -85,8 +85,8 @@ def _packed_forward(params: dict, inputs: Tensor, seg_ids: Tensor,
     if embed:
         x = params["embed"][inputs.long()]
     blocks = slice_blocks(params["blocks"], start, start + depth)
-    x = stack_forward(blocks, cfg, x, window=cfg.sliding_window,
-                      seg_ids=seg_ids, positions=positions)
+    x, _ = stack_forward(blocks, cfg, x, window=cfg.sliding_window,
+                         seg_ids=seg_ids, positions=positions)
     if head:
         x = unembed(params, cfg, x)
     return x

@@ -11,9 +11,10 @@ shared stages run.
 
 Families ported so far:
   dense   — [ln -> GQA attn] + [ln -> (swiglu|gelu) mlp]
+  moe     — attn + MoE mlp (``models/moe.py``: grouped or dense dispatch)
   hybrid  — parallel attn + mamba2-style SSM heads (hymba), then mlp
   ssm     — RWKV6 time-mix + channel-mix (attention-free)
-The moe, vlm and audio families raise ``NotImplementedError``.
+The vlm and audio families raise ``NotImplementedError``.
 
 ``remat`` (training) recomputes each block's activations in the
 backward, as the JAX package's ``jax.checkpoint`` over the layer scan:
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import torch_dtype
@@ -49,7 +51,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -120,7 +122,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         blocks["channel_mix"] = rwkv_mod.init_channel_mix(gen, cfg, L)
     else:
         blocks["attn"] = attn.init_attention(gen, cfg, L)
-        blocks["mlp"] = nn.init_mlp(gen, cfg, L)
+        if cfg.family == "moe":
+            blocks["moe"] = moe_mod.init_moe(gen, cfg, L)
+        else:
+            blocks["mlp"] = nn.init_mlp(gen, cfg, L)
     if cfg.family == "hybrid":
         blocks["ssm"] = ssm_mod.init_ssm(gen, cfg, L)
     p["blocks"] = blocks
@@ -134,8 +139,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 def block_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
                   window: int = 0, causal: bool = True,
                   seg_ids: Optional[Tensor] = None,
-                  positions: Optional[Tensor] = None) -> Tensor:
-    """One block, full sequence.
+                  positions: Optional[Tensor] = None
+                  ) -> tuple[Tensor, Optional[Tensor]]:
+    """One block, full sequence. Returns (x, moe_aux): the router's
+    load-balance loss for a moe block, None for every other family.
 
     seg_ids/positions (B, S) carry the sequence-packed layout
     (``models.packed``): attention is masked to segment boundaries and
@@ -147,7 +154,7 @@ def block_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
         x = x + y
         y, _ = rwkv_mod.channel_mix(
             p["channel_mix"], cfg, nn.apply_norm(p["ln2"], cfg, x))
-        return x + y
+        return x + y, None
     h = nn.apply_norm(p["ln1"], cfg, x)
     y = attn.attn_forward(p["attn"], cfg, h, window=window, causal=causal,
                           positions=positions, seg_ids=seg_ids)
@@ -155,7 +162,10 @@ def block_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
         y = 0.5 * (y + ssm_mod.ssm_forward(p["ssm"], cfg, h))
     x = x + y
     h = nn.apply_norm(p["ln2"], cfg, x)
-    return x + nn.apply_mlp(p["mlp"], cfg, h)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_forward(p["moe"], cfg, h)
+        return x + y, aux
+    return x + nn.apply_mlp(p["mlp"], cfg, h), None
 
 
 Remat = Union[bool, str]
@@ -184,16 +194,21 @@ def stack_forward(blocks: dict, cfg: ModelConfig, x: Tensor, *,
                   window: int = 0, causal: bool = True,
                   seg_ids: Optional[Tensor] = None,
                   positions: Optional[Tensor] = None,
-                  remat: Remat = False) -> Tensor:
+                  remat: Remat = False) -> tuple[Tensor, Tensor]:
     """Apply every layer of ``blocks`` (leading layer axis) in order,
-    each block under ``remat`` (see the module docstring)."""
+    each block under ``remat`` (see the module docstring). Returns (x,
+    the moe aux loss summed over the layers: a float32 scalar, 0 for the
+    families without a router)."""
     ckpt = _remat_kwargs(remat)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in _layers(blocks):
         def block(h, p_l=p_l):
             return block_forward(p_l, cfg, h, window=window, causal=causal,
                                  seg_ids=seg_ids, positions=positions)
-        x = block(x) if ckpt is None else checkpoint(block, x, **ckpt)
-    return x
+        x, aux = block(x) if ckpt is None else checkpoint(block, x, **ckpt)
+        if aux is not None:
+            total = total + aux
+    return x, total
 
 
 # ---------------------------------------------------------------------------
@@ -211,15 +226,16 @@ def unembed(params: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: Tensor, *,
-            remat: Remat = False) -> Tensor:
+            remat: Remat = False) -> tuple[Tensor, Tensor]:
     """Full forward (training / logits-only prefill): tokens (B, S) ->
-    logits (B, S, vocab). The ported families have no MoE auxiliary
-    loss, so, unlike the JAX ``forward``, it returns the logits alone."""
+    (logits (B, S, vocab), moe_aux), as the JAX ``forward``: moe_aux is
+    the router load-balance loss summed over the layers (0 for the
+    families without a router)."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
-    x = stack_forward(params["blocks"], cfg, x, window=cfg.sliding_window,
-                      remat=remat)
-    return unembed(params, cfg, x)
+    x, aux = stack_forward(params["blocks"], cfg, x,
+                           window=cfg.sliding_window, remat=remat)
+    return unembed(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -237,8 +253,9 @@ def fragment_forward(params: dict, cfg: ModelConfig, hidden: Tensor,
                      start: int, end: int) -> Tensor:
     """Run blocks [start, end) on hidden states — Graft stage execution."""
     _check_family(cfg)
-    return stack_forward(slice_blocks(params["blocks"], start, end), cfg,
+    x, _ = stack_forward(slice_blocks(params["blocks"], start, end), cfg,
                          hidden, window=cfg.sliding_window)
+    return x
 
 
 def run_fragment(params: dict, cfg: ModelConfig, inputs: Tensor,

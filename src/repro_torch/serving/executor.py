@@ -51,6 +51,7 @@ from repro_torch.core.plandiff import (diff_plans, plan_pools, pool_range,
 from repro_torch.core.repartition import pool_key
 from repro_torch.kernels import launch_counts
 from repro_torch.models import n_fragment_units, resolve_device, run_fragment
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.decode import (cache_len_for, decode_step,
                                        init_cache, prefill)
 from repro_torch.models.packed import (_packed_forward, is_packable,
@@ -126,6 +127,16 @@ def _extras_sig(extras: Optional[dict]) -> tuple:
                         for k, v in extras.items()))
 
 
+def shares_prefixes(cfg: ModelConfig) -> bool:
+    """Whether a decode pool of ``cfg`` reuses prompt prefixes across
+    requests from its paged KV arena: the dense family, and moe where
+    the dispatch never drops a token (``moe.dropless``), each with a
+    float KV cache."""
+    return (cfg.family == "dense"
+            or (cfg.family == "moe" and moe_mod.dropless(cfg))) \
+        and cfg.kv_cache_dtype != "int8"
+
+
 class FragmentInstance:
     """One stage pool: its fragment program + a batching queue.
 
@@ -189,11 +200,13 @@ class FragmentInstance:
         self.kv_handoffs_in = 0               # cross-pool KV handoffs in
         # cross-request prefix sharing reconstructs a prompt's KV from the
         # paged arena alone, which only the attention-only families allow.
-        # The arena keeps no int8 scales, so an int8 KV cache never shares
-        # (the JAX package shares there, and a shared admission decodes
-        # other tokens than its unbatched reference: ROADMAP.md §3)
-        self._kv_share = cfg.family in ("dense", "moe") \
-            and cfg.kv_cache_dtype != "int8"
+        # The arena keeps no int8 scales, so an int8 KV cache never shares;
+        # nor does a moe dispatch that can drop tokens, since which
+        # prefix tokens drop depends on the length of the prompt whose
+        # prefill wrote the KV (the JAX package shares in both cases, and
+        # a shared admission decodes other tokens than its unbatched
+        # reference: ROADMAP.md §3)
+        self._kv_share = shares_prefixes(cfg)
 
     def retarget(self, spec: PoolSpec) -> None:
         """Adopt a new pool shape; the block range is unchanged by
@@ -334,9 +347,7 @@ class FragmentInstance:
         cleanly between a solo admission cache and the batched one, with
         a context that fits the dense cache without ring wraparound so
         cache slot == absolute position and arena extraction is exact.
-        (dense/moe/hybrid — vlm/audio need extras, ssm has no KV. Of
-        those, moe is not ported yet and raises ``NotImplementedError``
-        at its first admission.)"""
+        (dense/moe/hybrid — vlm/audio need extras, ssm has no KV.)"""
         return (self.decode_ctx > 0 and self.start == 0
                 and self.end == self._units
                 and self.cfg.family in ("dense", "moe", "hybrid")

@@ -128,7 +128,7 @@ def check_against_monolithic(cfg, params, reqs, *, atol=5e-5,
     for req, _p in reqs:
         toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
                                device=dev)[None]
-        want = forward(params, cfg, toks)[0].float().cpu().numpy()
+        want = forward(params, cfg, toks)[0][0].float().cpu().numpy()
         got = req.result.float().numpy()
         np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
         worst = max(worst, float(np.abs(got - want).max()))
@@ -259,7 +259,7 @@ def check_steps_against_forward(cfg, params, tokens, n_steps: int, *,
     toks = torch.as_tensor(np.asarray(tokens, np.int32).reshape(1, -1),
                            device=dev)
     S = int(toks.shape[1]) - n_steps
-    full = forward(params, cfg, toks).float()
+    full = forward(params, cfg, toks)[0].float()
     logits, cache = prefill(params, cfg, toks[:, :S],
                             cache_seq=int(toks.shape[1]))
     pairs = [(logits.float(), full[:, :S])]

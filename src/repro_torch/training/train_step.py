@@ -35,16 +35,17 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
     gather of the label logits. In the JAX package "onehot" is a layout
     device for vocab-sharded logits under GSPMD (it avoids gathering the
     (B, S, V) logits across devices); one card has nothing to gather, and
-    a materialised one-hot would cost a (B, S, V) tensor. The ported
-    families have no MoE router, so ``moe_aux`` is 0; ``extras`` (the
-    vlm/audio inputs) is accepted and unused, as for them."""
+    a materialised one-hot would cost a (B, S, V) tensor. ``moe_aux`` is
+    the forward's router load-balance loss (0 without a router), added
+    at ``router_aux_weight``; ``extras`` (the vlm/audio inputs) is
+    accepted and unused by the ported families."""
     if ce_impl not in CE_IMPLS:
         raise ValueError(f"ce_impl {ce_impl!r} not in {CE_IMPLS}")
-    logits = forward(params, cfg, tokens, remat=remat).float()
+    logits, moe_aux = forward(params, cfg, tokens, remat=remat)
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     ce = (logz - tgt).mean()
-    moe_aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     return ce + aux_w * moe_aux, {"ce": ce, "moe_aux": moe_aux}
 

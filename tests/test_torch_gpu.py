@@ -82,6 +82,12 @@ CASES = [  # B, Sq, Sk, H, KV, hd, causal, window, segments, fused qkv
     # segment ids out of order, id 5 in two separate runs
     (1, 300, 300, 8, 2, 64, True, 0,
      [(5, 40), (2, 90), (5, 70), (0, 60), (9, 40)], False),
+    # olmoe (GQA 1, hd 128): a packed wave, and a padded prompt
+    (1, 2048, 2048, 16, 16, 128, True, 0, [300, 517, 211, 489, 250, 181],
+     False),
+    (2, 512, 512, 16, 16, 128, True, 0, None, False),
+    # llama4-scout (GQA 5, hd 128)
+    (1, 1024, 1024, 40, 8, 128, True, 0, None, False),
 ]
 
 
@@ -196,6 +202,8 @@ DECODE_CASES = [  # B, Sk, H, KV, hd, q_pos, ring, window
     (3, 96, 16, 8, 128, [300, 95, 40], True, 0),      # ring, -1 holes
     (4, 512, 16, 8, 128, [511, 300, 64, 5], False, 0),  # main path
     (3, 1100, 25, 5, 64, [1099, 700, 30], False, 1024),  # hymba GQA 5
+    (4, 512, 16, 16, 128, [511, 300, 64, 5], False, 0),  # olmoe GQA 1
+    (4, 512, 40, 8, 128, [511, 300, 64, 5], False, 0),   # llama4 GQA 5
 ]
 
 

@@ -102,7 +102,7 @@ def test_forward_matches_jax(dense):
     jcfg, jp, cfg, tp = dense
     toks = _tokens(np.random.RandomState(3), cfg, 2, 13)
     want, _ = JM.forward(jp, jcfg, toks)
-    _close(TM.forward(tp, cfg, torch.from_numpy(toks)), want)
+    _close(TM.forward(tp, cfg, torch.from_numpy(toks))[0], want)
 
 
 def _ranges():
@@ -128,7 +128,7 @@ def test_fragments_compose_to_forward(dense):
     toks = torch.from_numpy(_tokens(np.random.RandomState(4), cfg, 1, 9))
     h = TM.run_fragment(tp, cfg, toks, 0, 1)
     y = TM.run_fragment(tp, cfg, h, 1, cfg.n_layers)
-    _close(y, TM.forward(tp, cfg, toks).numpy())
+    _close(y, TM.forward(tp, cfg, toks)[0].numpy())
 
 
 # ----------------------------------------------------------------- packed
@@ -214,13 +214,24 @@ def test_init_params_without_device_needs_a_card():
 
 
 def test_only_dense_is_ported():
-    """The families still to port (moe, vlm, audio) raise; dense, hybrid
-    and ssm build."""
-    for arch in ("olmoe-1b-7b", "llama-3.2-vision-90b", "whisper-base"):
+    """The families still to port (vlm, audio) raise; dense, moe, hybrid
+    and ssm build, and a moe model serves its fragments (the aux loss
+    comes back with the forward's logits)."""
+    for arch in ("llama-3.2-vision-90b", "whisper-base"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TM.init_params(get_smoke_config(arch), device="cpu")
     for arch in ("qwen3-1.7b", "hymba-1.5b", "rwkv6-7b"):
         assert TM.init_params(get_smoke_config(arch), device="cpu")["blocks"]
+    for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):
+        cfg = get_smoke_config(arch)
+        tp = TM.init_params(cfg, device="cpu")
+        assert "moe" in tp["blocks"] and "mlp" not in tp["blocks"]
+        toks = torch.from_numpy(_tokens(np.random.RandomState(5), cfg, 1, 6))
+        logits, aux = TM.forward(tp, cfg, toks)
+        h = TM.run_fragment(tp, cfg, toks, 0, 1)
+        _close(TM.run_fragment(tp, cfg, h, 1, cfg.n_layers),
+               logits.numpy())
+        assert float(aux) > 0
 
 
 def test_full_width_config_is_the_registry_one():

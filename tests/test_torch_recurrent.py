@@ -477,7 +477,7 @@ def test_forward_matches_jax(family):
     toks = np.random.RandomState(17).randint(0, cfg.vocab_size, (2, 21)) \
         .astype(np.int32)
     want, _ = JM.forward(jp, jcfg, toks)
-    _close(TM.forward(tp, cfg, torch.from_numpy(toks)), want)
+    _close(TM.forward(tp, cfg, torch.from_numpy(toks))[0], want)
 
 
 def _ranges():
@@ -528,7 +528,7 @@ def test_rwkv6_padded_batch_gap_matches_jax():
         for alone, padded in (
                 (np.asarray(JM.forward(jh, jc, toks)[0])[0],
                  np.asarray(JM.run_fragment(jh, jc, batch, 0, d))),
-                (TM.forward(th, c, torch.from_numpy(toks))[0].numpy(),
+                (TM.forward(th, c, torch.from_numpy(toks))[0][0].numpy(),
                  TM.run_fragment(th, c, torch.from_numpy(batch), 0, d)
                  .numpy())):
             diff = np.abs(padded[rows // 2, :S] - alone)
@@ -602,7 +602,7 @@ def test_multi_step_decode_matches_forward(hymba, rwkv, arch):
     S, n_new = 8, 4
     toks = np.random.RandomState(20).randint(0, cfg.vocab_size,
                                              (1, S + n_new)).astype(np.int32)
-    full = TM.forward(tp, cfg, torch.from_numpy(toks))
+    full, _ = TM.forward(tp, cfg, torch.from_numpy(toks))
     jfull, _ = JM.forward(jp, jcfg, toks)
     _close(full, jfull)
     _, cache = tdec.prefill(tp, cfg, torch.from_numpy(toks[:, :S]),

@@ -502,7 +502,8 @@ def test_token_batches_match_jax():
 
 def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     """launch.train --device cpu: 2 steps of a smoke config, a checkpoint,
-    then a resumed run from it; an unported family raises."""
+    then a resumed run from it; a moe smoke config takes a step (its
+    loss carries the router aux); an unported family raises."""
     from repro_torch.launch.train import main
     ckpt = os.path.join(tmp_path, "ckpt")
     args = ["--arch", "qwen3-1.7b", "--device", "cpu", "--steps", "2",
@@ -515,5 +516,9 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     for line in out.splitlines():
         if line.startswith("step"):
             assert np.isfinite(float(line.split()[3]))
+    assert main(["--arch", "olmoe-1b-7b", "--device", "cpu", "--steps",
+                 "1", "--batch", "2", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "olmoe-1b-7b-smoke" in out and "step    0" in out
     with pytest.raises(NotImplementedError):
-        main(["--arch", "olmoe-1b-7b", "--device", "cpu", "--steps", "1"])
+        main(["--arch", "whisper-base", "--device", "cpu", "--steps", "1"])
