@@ -20,10 +20,14 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    segments starting mid-tile, segment ids out of order and recurring,
    S = 64k + 1, a window crossed with a ragged last tile, q, k and v as
    slices of one fused QKV buffer, the moe family's layouts (olmoe's 16
-   heads of 16 kv at hd 128 packed and padded, llama4-scout's 40 of 8);
+   heads of 16 kv at hd 128 packed and padded, llama4-scout's 40 of 8),
+   the vlm and audio families' (whisper-base's encoder, decoder and
+   cross-attention, 8 heads of 64 over 1500 frames; llama-3.2-vision's
+   self and cross-attention, 64 heads / 8 kv of 128 over 1601 image
+   tokens; both cross-attentions at Sq = 1 as decode runs them);
    for the decode kernel ragged Sk, a ring-buffer kv_pos with -1 holes,
-   windows, hymba's GQA 5 at hd 64 with its window crossed, olmoe's and
-   llama4-scout's decode steps; for the two recurrent scans T = 1, a prime
+   windows, hymba's GQA 5 at hd 64 with its window crossed, olmoe's,
+   llama4-scout's, whisper's and llama-3.2-vision's decode steps; for the two recurrent scans T = 1, a prime
    T, a T that is not a multiple of 32, a nonzero input state and decays
    far past the clamp (in one chunk, and over four 64-step chunks with a
    ragged tail), for the WKV scan also T = 64 and 65 and head dims 16 and
@@ -31,14 +35,17 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    two backward kernels dq, dk and dv on the same (q, k, v, o, lse, dO):
    the training shape, the JAX backward test's shapes with windows 0 and
    40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal, rows that see
-   no kv, hymba's GQA 5 with window 1024 at S = 1100, fused-QKV slices),
+   no kv, hymba's GQA 5 with window 1024 at S = 1100, fused-QKV slices,
+   whisper's encoder and cross-attention, vision's cross-attention),
    in float32 (scalar bodies) and bfloat16 (tensor-core bodies).
    timing  — the kernel, its plain version and a PyTorch library call
    (where one exists) at the main-path shapes with CUDA events (the
    library's attention backward under the profiler), the forward with
    logsumexp also at hymba's serving shape and a decode admission's,
    beside SDPA, the decode kernel also at hymba's decode shape, both
-   scans also at T = 2048, and each call of the decode kernel and the two
+   scans also at T = 2048, the forward with logsumexp at the two
+   cross-attention decode shapes (Sq = 1; L2 cold) beside SDPA, and each
+   call of the decode kernel and the two
    scans split by kernel under the profiler (the device's gap or overlap
    between launches). It checks nothing of the kernels, so it also
    times an older tree's kernels with this script copied beside them.
@@ -135,7 +142,25 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    kernels inside ``moe_forward`` as their own group. Then
    llama4-scout (published widths, 2 of 48 layers: top 1 plus a shared
    expert, GQA 5) through the block check and both dispatches' waves.
-10. train  — full-width qwen3-1.7b (28 layers, random weights) on the
+10. multimodal — whisper-base at full width (6 encoder and 6 decoder
+   layers, 1500 frames), then llama-3.2-vision-90b at its published widths
+   cut to 2 of its 20 superblocks (10 layers, 10.7B parameters), float32
+   with TF32 off: the serve phase's path, each request carrying its stub
+   frontend's embeddings (vision: images; whisper: frames and the
+   encoder's memory of them, which its fragments read), every result
+   held against that request's own forward; then greedy streams of 16
+   tokens by ``prefill`` + ``decode_step`` (4 whisper, 3 vision; prompts
+   16-200 tokens), each token equal to the argmax of the forward re-run
+   on the grown sequence (the smallest top-1 minus top-2 margin
+   printed); vision's int8 KV cache through the kernels against the same
+   decode through the plain ops. The vision cross blocks' gates are
+   opened to 0.5 (the init's 0 passes them through). bfloat16 waves are
+   timed and profiled, whisper's bf16 streams timed. Then whisper-base
+   training (batch 2 x 128 tokens with frames): fp32 gradients, the
+   encoder's included, against the plain attention's, one counted AdamW
+   step, and counted, timed bf16 steps (rows 2, 4 and 5 launching
+   exactly once per attention and recompute).
+11. train  — full-width qwen3-1.7b (28 layers, random weights) on the
    ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
    off: the loss and every gradient leaf through the kernels against
    autograd of the plain attention (``ops.attention`` swapped here
@@ -151,7 +176,8 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
 Each model is freed before the next one loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model
-(both dispatches' waves for the moe models),
+(both dispatches' waves for the moe models), the multimodal phase's
+float32 waves and decode streams and its whisper train steps,
 the float32 server loop and its disaggregated streams, the float32
 remote executor's waves and fleet loop (launches in the workers and in
 this process), and the float32 AdamW steps and timed bfloat16 steps, each path's
@@ -165,6 +191,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -280,7 +307,22 @@ CASES = [
     ("olmoe prompt, GQA 1", 2, 512, 512, 16, 16, 128, True, 0, None, False),
     ("llama4 prompt, GQA 5", 1, 1024, 1024, 40, 8, 128, True, 0, None,
      False),
+    # the vlm and audio families: whisper-base (8 heads of 64, 1500
+    # frames) and llama-3.2-vision (64 heads / 8 kv of 128, 1601 image
+    # tokens); cross-attention is non-causal with Sq != Sk (a ragged last
+    # kv tile at both lengths), Sq = 1 in decode (a q tile of one row)
+    ("whisper encoder", 2, 1500, 1500, 8, 8, 64, False, 0, None, False),
+    ("whisper decoder self", 2, 448, 448, 8, 8, 64, True, 0, None, False),
+    ("whisper cross", 2, 448, 1500, 8, 8, 64, False, 0, None, False),
+    ("whisper cross decode, Sq 1", 4, 1, 1500, 8, 8, 64, False, 0, None,
+     False),
+    ("vision self", 1, 300, 300, 64, 8, 128, True, 0, None, False),
+    ("vision cross", 2, 200, 1601, 64, 8, 128, False, 0, None, False),
+    ("vision cross decode, Sq 1", 3, 1, 1601, 64, 8, 128, False, 0, None,
+     False),
 ]
+# row 2 at the two cross-attention decode shapes (timed against SDPA)
+CROSS_DECODE_TIMED = [c for c in CASES if c[2] == 1]
 
 
 def attention_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd, fused):
@@ -377,6 +419,10 @@ DECODE_CASES = [
      0),
     ("llama4 decode, GQA 5", 4, 512, 40, 8, 128, [511, 300, 64, 5], False,
      0),
+    # the vlm/audio decoders' self-attention: whisper (8 of 64, its 448
+    # positions), llama-3.2-vision (64 / 8 of 128)
+    ("whisper decode self", 4, 448, 8, 8, 64, [447, 200, 31, 16], False, 0),
+    ("vision decode self", 3, 216, 64, 8, 128, [215, 100, 17], False, 0),
     DECODE_MAIN,
 ]
 
@@ -421,6 +467,11 @@ BWD_CASES = [BWD_MAIN] + [
     ("hymba GQA 5, window crossed, ragged tile", 1, 1100, 1100, 25, 5, 64,
      True, 1024, False),
     ("fused QKV slices", 2, 160, 160, 8, 2, 128, True, 0, True),
+    # the vlm and audio training layouts: whisper's encoder and its
+    # decoder's cross-attention (the memory's gradient), vision's cross
+    ("whisper encoder", 2, 1500, 1500, 8, 8, 64, False, 0, False),
+    ("whisper cross", 2, 128, 1500, 8, 8, 64, False, 0, False),
+    ("vision cross", 1, 128, 1601, 64, 8, 128, False, 0, False),
 ]
 
 
@@ -675,6 +726,9 @@ def timing_phase(device) -> dict:
                                (ADMIT_PROMPT, "flash_attention_lse", False)):
         r = time_forward(device, gen, case, name, with_plain=record)
         out[name if record else f"{name} {case[0]}"] = r
+    for case in CROSS_DECODE_TIMED:
+        out[f"flash_attention_lse {case[0]}"] = time_cross_decode(
+            device, gen, case)
     out["decode_attention"] = time_decode(device, gen)
     out.update(time_scans(device, gen))
     out.update(time_bwd(device, gen))
@@ -733,6 +787,43 @@ def time_forward(device, gen, case, name, *, with_plain) -> dict:
           f"{ms / r['library_ms']:.2f}x SDPA; "
           f"bound {bms:.4f} ms ({by}: {nbytes} B, {flops:.3e} FLOP over "
           f"{pairs} valid pairs), {100 * bms / ms:.1f}% of it; device times")
+    return r
+
+
+def time_cross_decode(device, gen, case) -> dict:
+    """Row 2 at a cross-attention decode shape (Sq = 1, non-causal, bf16),
+    L2 cold: 8 copies of the inputs in turn, as a decode step finds each
+    layer's memory k/v. Bound: q, k, v, o in bf16 and the lse once, 4 hd
+    FLOPs per (head, k) pair. Library: one SDPA call on the same inputs
+    (no mask)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    label, B, Sq, Sk, H, KV, hd = case[:7]
+    copies = [attention_inputs(gen, torch.bfloat16, device, B, Sq, Sk, H,
+                               KV, hd, False) for _ in range(8)]
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * KV * hd) * 2 \
+        + B * H * Sq * 4
+    flops = 4.0 * hd * H * B * Sq * Sk
+    bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+    lib = [tuple(t.transpose(1, 2) for t in c) for c in copies]
+    run = rotating(lambda q, k, v: fa.flash_attention_lse(q, k, v,
+                                                          causal=False),
+                   copies)
+    ms, host_ms = time_ms(run)
+    r = {"ms": ms, "host_ms": host_ms,
+         "library_ms": time_ms(rotating(
+             lambda q, k, v: F.scaled_dot_product_attention(
+                 q, k, v, enable_gqa=True), lib))[0],
+         "bound_ms": bms, "bound_by": by, "bytes": nbytes, "flops": flops,
+         "shape": (B, Sq, Sk, H, KV, hd)}
+    print(f"  flash_attention_lse bf16 {label} {r['shape']}: kernel "
+          f"{ms:.4f} ms (host {host_ms:.4f} ms per call), library (SDPA) "
+          f"{r['library_ms']:.4f} ms, {ms / r['library_ms']:.2f}x SDPA; "
+          f"bound {bms:.4f} ms ({by}: {nbytes} B, {flops:.3e} FLOP), "
+          f"{100 * bms / ms:.1f}% of it; L2 cold: 8 input copies in turn; "
+          "device times")
     return r
 
 
@@ -997,12 +1088,14 @@ def time_bwd(device, gen) -> dict:
 # phase 3: serving the main path
 # ---------------------------------------------------------------------------
 
-def make_wave(cfg, frags, rng, *, lo=128, hi=512, n_long=0, exact=False):
+def make_wave(cfg, frags, rng, *, lo=128, hi=512, n_long=0, exact=False,
+              extras=None):
     """One request per fragment with lo..hi prompt tokens; the first
     ``n_long`` prompts are longer than 1024 tokens (up to ``hi``). With
     ``exact``, the prompts instead take the distinct lengths of
     ``EXACT_LENGTHS`` in a random order: every pool then runs each
-    request alone at its own length, the monolithic forward's shapes."""
+    request alone at its own length, the monolithic forward's shapes.
+    ``extras()``, if given, makes each request's extras."""
     import numpy as np
     from repro_torch.serving import ServeRequest
     order = rng.permutation(EXACT_LENGTHS) if exact else None
@@ -1016,7 +1109,9 @@ def make_wave(cfg, frags, rng, *, lo=128, hi=512, n_long=0, exact=False):
             n = int(rng.randint(lo, hi + 1))
         reqs.append((ServeRequest(client=f.client,
                                   tokens=rng.randint(0, cfg.vocab_size, n)
-                                  .astype(np.int32)), f.p))
+                                  .astype(np.int32),
+                                  extras=extras() if extras else None),
+                     f.p))
     return reqs
 
 
@@ -1177,9 +1272,10 @@ def check_results(cfg, params, reqs, label):
           f"{worst:.3e})")
 
 
-def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
+def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, lo=128, hi=512,
                 n_long=0, exact=False, after_fp32=None, n_layers=None,
-                dispatches=(("", None, None),)) -> dict:
+                dispatches=(("", None, None),), extras=None, prepare=None,
+                after_bf16=None) -> dict:
     """Serve one model's path at full width (``n_layers`` cuts its
     depth); returns the kernels' launch counts over the float32 waves.
     ``need`` names the kernels that must have launched there; ``exact``
@@ -1192,23 +1288,38 @@ def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
     the weights do not depend on), where the kernels ``need`` (None:
     the phase's) must launch. The bfloat16 waves serve the config as
     published; for a moe model the warm-up wave counts each layer's
-    dropped tokens."""
+    dropped tokens. ``extras(cfg, params, gen)`` makes one request's
+    extras (a vlm or audio model's), ``gen`` a generator on the card
+    seeded from ``seed``; ``prepare(cfg, params)`` edits each model's
+    weights after its init; ``after_bf16(cfg, params)`` runs after the
+    bfloat16 waves."""
     import numpy as np
     import torch
     from repro_torch.core import Fragment
+    from repro_torch.models import n_fragment_units
     from repro_torch.serving.smoke import smoke_setup
+
+    def bind(c, p):
+        if extras is None:
+            return None
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return lambda: extras(c, p, gen)
 
     t0 = time.perf_counter()
     cfg, book, params = smoke_setup(arch, full_width=True, dtype="float32",
                                     seq_len=512, n_layers=n_layers,
                                     device=device)
+    if prepare is not None:
+        prepare(cfg, params)
     torch.cuda.synchronize()
-    print(f"  {cfg.name} ({cfg.family}): d_model {cfg.d_model}, "
+    n_params = sum(t.numel() for t in named_leaves(params).values())
+    print(f"  {cfg.name} ({cfg.family}): {n_params / 1e9:.3f}B params, "
+          f"d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, head_dim "
           f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.n_layers} layers, window {cfg.sliding_window}, {cfg.dtype}"
           f"{moe_text(cfg)}; init {time.perf_counter() - t0:.1f} s")
-    L = cfg.n_layers
+    L = n_fragment_units(cfg)
     rng = np.random.RandomState(seed)
     points = sorted(int(p) for p in rng.choice(L, size=6, replace=L < 6))
     frags = [Fragment(cfg.name, p=p, t=float(40.0 + 40.0 * rng.rand()),
@@ -1217,8 +1328,8 @@ def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
     s = L // 2
     frags2 = [Fragment(cfg.name, min(f.p, s), f.t, f.q, client=f.client)
               for f in frags]
-    wave = dict(hi=hi, n_long=n_long)
-    wave32 = dict(wave, exact=exact)
+    wave = dict(lo=lo, hi=hi, n_long=n_long)
+    wave32 = dict(wave, exact=exact, extras=bind(cfg, params))
     launches: dict = {}
     for label, edit, v_need in dispatches:
         c = cfg if edit is None else edit(cfg)
@@ -1231,14 +1342,19 @@ def serve_phase(device, arch="qwen3-1.7b", *, need, seed=0, hi=512,
             fail(f"a kernel of the serving path never launched: {got}")
     if after_fp32 is not None:
         after_fp32(cfg, params)
-    del params
+    del params, wave32                  # the extras closure holds params
     free_device()
 
     # the same path in bfloat16, timed (a warm-up wave first)
     cfg16, _, params16 = smoke_setup(arch, full_width=True,
                                      dtype="bfloat16", seq_len=512,
                                      n_layers=n_layers, device=device)
-    serve_bf16_waves(cfg16, book, params16, frags2, s, rng, wave, device)
+    if prepare is not None:
+        prepare(cfg16, params16)
+    serve_bf16_waves(cfg16, book, params16, frags2, s, rng,
+                     dict(wave, extras=bind(cfg16, params16)), device)
+    if after_bf16 is not None:
+        after_bf16(cfg16, params16)
     return launches
 
 
@@ -2277,7 +2393,313 @@ def remote_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: training on the main path
+# phase 10: the vlm and audio families
+# ---------------------------------------------------------------------------
+
+# llama-3.2-vision's depth on the card: 2 of its 20 superblocks (10 of its
+# 100 layers, a cross block after every 5) at the published widths, 10.7B
+# parameters, 42.6 GB in float32: the fewest superblocks that leave a
+# fragment cut (its 90.7B parameters do not fit)
+VISION_LAYERS = 10
+# a fresh cross block's gates are 0 and tanh(0) passes the block through;
+# the phase opens them so the image embeddings reach the logits
+VISION_GATE = 0.5
+MM_NEW = 16
+MM_PROMPTS = (16, 201)
+MM_TRAIN_B, MM_TRAIN_S = 2, 128
+MM_BF16_STEPS = 3
+
+
+def mm_extras(cfg, params, gen) -> dict:
+    """One request's extras on the params' device: a vlm request's image
+    embeddings; an audio request's frame embeddings and the encoder's
+    memory of them (what its served fragments read)."""
+    import torch
+    from repro_torch.models import encode_audio, make_extras
+    ex = make_extras(cfg, 1, gen, device=params["embed"].device)
+    if cfg.family == "audio":
+        with torch.no_grad():
+            ex["memory"] = encode_audio(params, cfg, ex["frames"])
+    return ex
+
+
+def open_gates(cfg, params) -> None:
+    if cfg.family == "vlm":
+        for g in ("gate_attn", "gate_mlp"):
+            params["cross_blocks"][g].fill_(VISION_GATE)
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """``ops.attention`` and ``ops.attend_cache`` are the kernels' plain
+    versions inside the block (the JAX package's reference ops)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    saved = ops.attention, ops.attend_cache
+    ops.attention, ops.attend_cache = plain_attention, \
+        da.decode_attention_plain
+    try:
+        yield
+    finally:
+        ops.attention, ops.attend_cache = saved
+
+
+def greedy(cfg, params, prompt, ex, max_new, *, forced=None):
+    """prefill + ``max_new`` - 1 decode steps of one stream (``forced``:
+    feed these tokens instead of the argmax) -> (tokens, each position's
+    logits (fp32, on the card), top-1 minus top-2 margins)."""
+    import torch
+    from repro_torch.models.decode import decode_step, prefill
+    dev = params["embed"].device
+    toks = torch.as_tensor(prompt, device=dev)[None]
+    with torch.no_grad():
+        logits, cache = prefill(params, cfg, toks, extras=ex,
+                                cache_seq=len(prompt) + max_new)
+        out, rows, margins = [], [], []
+        for i in range(max_new):
+            row = logits[0, -1].float()
+            top = torch.topk(row, 2).values
+            out.append(int(row.argmax()) if forced is None else forced[i])
+            rows.append(row)
+            margins.append(float(top[0] - top[1]))
+            if i + 1 < max_new:
+                step = torch.tensor([[out[-1]]], dtype=torch.int32,
+                                    device=dev)
+                logits, cache = decode_step(params, cfg, cache, step)
+    return out, rows, margins
+
+
+def mm_streams(cfg, params, n, seed):
+    """``n`` prompts of ``MM_PROMPTS`` tokens, each with its own stub
+    extras (what ``forward`` and ``prefill`` read)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import make_extras
+    rng = np.random.RandomState(seed)
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(rng.randint(0, cfg.vocab_size, int(rng.randint(*MM_PROMPTS)))
+             .astype(np.int32), make_extras(cfg, 1, gen, device=dev))
+            for _ in range(n)]
+
+
+def mm_decode_check(cfg, params, n, runs, *, int8=False) -> None:
+    """``n`` greedy streams of ``MM_NEW`` tokens by prefill + decode_step
+    (the path counted into ``runs``), each token equal to the argmax of
+    the forward re-run on the grown sequence. With ``int8``, the first
+    stream again with an int8 KV cache through the kernels, against the
+    same int8 decode through the plain ops (the JAX package's reference
+    ops): the same argmax, and both within the JAX int8 test's bound (0.1
+    of the logits' std) of the float forward."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import forward
+    streams = mm_streams(cfg, params, n, seed=11)
+    print(f"  decode streams: prompts {[len(p) for p, _ in streams]}, "
+          f"{MM_NEW} new tokens each")
+    reset_launches()                        # the decode path starts here
+    t0 = time.perf_counter()
+    got = [greedy(cfg, params, p, ex, MM_NEW) for p, ex in streams]
+    torch.cuda.synchronize()
+    launches = read_launches()              # ... and ends here
+    runs.append(launches)
+    print(f"  fp32 decode: {n * MM_NEW} tokens in "
+          f"{time.perf_counter() - t0:.2f} s; kernel launches {launches}")
+    if not all(launches[k] > 0 for k in ("decode_attention",
+                                         "flash_attention_lse")):
+        fail(f"a kernel of the {cfg.name} decode path never launched: "
+             f"{launches}")
+
+    def forward_rows(prompt, toks, ex):
+        seq = torch.as_tensor(np.concatenate([prompt, toks]),
+                              device=params["embed"].device)[None]
+        with torch.no_grad():
+            full = forward(params, cfg, seq, extras=ex)[0][0].float()
+        return full[len(prompt) - 1:-1]
+    worst = []
+    for i, ((prompt, ex), (toks, _, margins)) in enumerate(zip(streams,
+                                                               got)):
+        want = forward_rows(prompt, toks, ex).argmax(-1).tolist()
+        if toks != want:
+            fail(f"{cfg.name} stream {i}: decoded {toks} != the forward's "
+                 f"argmax {want} (margins {margins})")
+        worst.append(min(margins))
+    print(f"  {n} streams token-exact against the forward re-run on the "
+          f"grown sequence; smallest top-1 minus top-2 margin per stream "
+          f"{[f'{m:.4g}' for m in worst]}")
+    if not int8:
+        return
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    prompt, ex = streams[0]
+    toks8, rows8, _ = greedy(cfg8, params, prompt, ex, MM_NEW)
+    with plain_ops():
+        _, rows_p, _ = greedy(cfg8, params, prompt, ex, MM_NEW,
+                              forced=toks8)
+    ref = forward_rows(prompt, toks8, ex)
+    k8, p8 = torch.stack(rows8), torch.stack(rows_p)
+    d_plain = float((k8 - p8).abs().max())
+    d_float = max(float((k8 - ref).abs().max()),
+                  float((p8 - ref).abs().max()))
+    bound8 = 0.1 * max(float(ref.std()), 1e-3)
+    same = p8.argmax(-1).tolist() == toks8
+    print(f"  int8 KV cache, {MM_NEW} tokens: the plain ops' argmax equals "
+          f"the kernels' {same}; max |logit diff| kernels against plain ops "
+          f"{d_plain:.3e}, either against the float forward {d_float:.3e} "
+          f"(bound {bound8:.3e}, 0.1 of its std)")
+    if not same or max(d_plain, d_float) > bound8:
+        fail(f"{cfg.name} int8 decode disagrees with the plain ops or the "
+             "float forward")
+
+
+def mm_bf16_decode(cfg, params, n) -> None:
+    """``n`` bfloat16 streams of ``MM_NEW`` tokens, timed (host clock;
+    each step's argmax is copied to the host)."""
+    import torch
+    streams = mm_streams(cfg, params, n, seed=12)
+    greedy(cfg, params, *streams[0], 2)                      # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, ex in streams:
+        greedy(cfg, params, p, ex, MM_NEW)
+    wall = time.perf_counter() - t0
+    print(f"  bf16 decode: {n} streams of {MM_NEW} tokens (prefill + "
+          f"{MM_NEW - 1} steps each, batch 1) in {wall:.3f} s = "
+          f"{n * MM_NEW / wall:.1f} tokens/s (host clock)")
+
+
+def mm_train(device, runs) -> None:
+    """whisper-base at full width, float32 (TF32 off): the loss and every
+    gradient of one batch (2 x 128 tokens with frames) through the
+    kernels against autograd of the plain attention, the encoder's
+    gradients (through the cross-attention's memory) included; one AdamW
+    step counted: the encoder's non-causal attentions run once, the
+    decoder's self and cross attentions twice (remat recomputes them),
+    and rows 4-5 once per attention; then bfloat16 steps, counted and
+    timed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_batches
+    from repro_torch.models import init_params, make_extras
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.train_step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config("whisper-base"), dtype="float32")
+    params = init_params(cfg, seed=0, device=device)
+    data = token_batches(batch=MM_TRAIN_B, seq_len=MM_TRAIN_S,
+                         vocab=cfg.vocab_size, seed=1)
+    b0 = {k: torch.from_numpy(v).to(device) for k, v in next(data).items()}
+    gen = torch.Generator(device=device).manual_seed(7)
+    ex = make_extras(cfg, MM_TRAIN_B, gen, device=device)
+    loss_k, _, g_k = loss_and_grads(params, cfg, b0["tokens"], b0["labels"],
+                                    extras=ex, remat=False)
+    with oracle_attention():
+        loss_o, _, g_o = loss_and_grads(params, cfg, b0["tokens"],
+                                        b0["labels"], extras=ex,
+                                        remat=False)
+    torch.cuda.synchronize()
+    loss_k, loss_o = float(loss_k), float(loss_o)
+    rel, leaf = worst_leaf(g_k, g_o)
+    enc = worst_leaf({"enc_blocks": g_k["enc_blocks"]},
+                     {"enc_blocks": g_o["enc_blocks"]})
+    print(f"  {cfg.name} fp32 loss through the kernels {loss_k:.6f}, through "
+          f"the plain attention {loss_o:.6f}; gradients: worst leaf {leaf} "
+          f"rel L2 {rel:.3e}, the encoder's worst {enc[1]} {enc[0]:.3e} "
+          f"(bound {GRAD_REL_L2:g}); batch {MM_TRAIN_B} x {MM_TRAIN_S} "
+          f"tokens with {cfg.audio.n_audio_frames} frames each")
+    if abs(loss_k - loss_o) > LOSS_RTOL * abs(loss_o) or rel > GRAD_REL_L2:
+        fail(f"{cfg.name} gradients through the kernels disagree with the "
+             "plain attention's")
+    del g_k, g_o
+    n_enc, L = cfg.audio.n_encoder_layers, cfg.n_layers
+    per_step = {"flash_attention_lse": n_enc + 2 * 2 * L,
+                "flash_attention_bwd_dq": n_enc + 2 * L,
+                "flash_attention_bwd_dkv": n_enc + 2 * L}
+    for label, n in (("fp32", 1), ("bf16", MM_BF16_STEPS)):
+        if label == "bf16":
+            del params, opt
+            free_device()
+            cfg = dataclasses.replace(cfg, dtype="bfloat16")
+            params = init_params(cfg, seed=0, device=device)
+            ex = make_extras(cfg, MM_TRAIN_B, gen, device=device)
+        step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR))
+        opt = init_opt_state(params)
+        if label == "bf16":                                 # warm-up
+            params, opt, _ = step(params, opt, next(data), ex)
+        torch.cuda.synchronize()
+        reset_launches()                    # the train path starts here
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(n):
+            params, opt, m = step(params, opt, next(data), ex)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n
+        launches = read_launches()          # ... and ends here
+        runs.append(launches)
+        losses = [float(x) for x in losses]
+        print(f"  {label} AdamW steps (remat=True): {n}, {wall:.4f} s/step, "
+              f"{MM_TRAIN_B * MM_TRAIN_S / wall:.1f} tokens/s (host clock, "
+              f"ended by a synchronize); losses "
+              f"{[round(x, 4) for x in losses]}; kernel launches {launches}")
+        want = {k: c * n for k, c in per_step.items()}
+        if not all(map(math.isfinite, losses)):
+            fail(f"{cfg.name} {label} losses are not finite: {losses}")
+        if any(launches[k] != c for k, c in want.items()):
+            fail(f"{cfg.name} {label} train path launches {launches}, "
+                 f"expected {want}")
+    del params, opt
+    free_device()
+
+
+def multimodal_phase(device) -> list:
+    """whisper-base at full width, then llama-3.2-vision at its published
+    widths cut to 2 of 20 superblocks: each served (float32 waves under
+    the planner's plan and a re-aligned one, every result against the
+    request's own forward; bfloat16 waves timed and profiled) and
+    decoded (float32 streams token-exact against the forward re-run;
+    vision's int8 KV cache against the plain ops; whisper's bfloat16
+    streams timed); then whisper-base's training step. Returns the
+    launch counts of each float32 path and of the bf16 train steps, in
+    the order the phase runs them."""
+    runs: list = []
+    need = ("flash_attention_lse",)          # extras never pack: row 2
+    t0 = time.perf_counter()
+    runs.append(serve_phase(
+        device, "whisper-base", seed=6, lo=32, hi=448, need=need,
+        extras=mm_extras,
+        after_fp32=lambda c, p: mm_decode_check(c, p, 4, runs),
+        after_bf16=lambda c, p: mm_bf16_decode(c, p, 4)))
+    print(f"  whisper-base: {time.perf_counter() - t0:.1f} s")
+    free_device()
+    t0 = time.perf_counter()
+    runs.append(serve_phase(
+        device, "llama-3.2-vision-90b", seed=7, lo=32, hi=160,
+        n_layers=VISION_LAYERS, need=need, extras=mm_extras,
+        prepare=open_gates,
+        after_fp32=lambda c, p: mm_decode_check(c, p, 3, runs, int8=True)))
+    print(f"  llama-3.2-vision-90b ({VISION_LAYERS} of 100 layers, 2 of 20 "
+          f"superblocks): {time.perf_counter() - t0:.1f} s")
+    free_device()
+    t0 = time.perf_counter()
+    mm_train(device, runs)
+    print(f"  whisper-base training: {time.perf_counter() - t0:.1f} s")
+    rows = ("flash_attention_lse", "decode_attention",
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    for label, r in zip(("whisper decode", "whisper serve", "vision decode",
+                         "vision serve", "whisper fp32 train",
+                         "whisper bf16 train"), runs):
+        print(f"  launches of rows 2-5, {label}: "
+              f"{ {k: r.get(k, 0) for k in rows} }")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training on the main path
 # ---------------------------------------------------------------------------
 
 TRAIN_B, TRAIN_S = 2, 512
@@ -2644,7 +3066,7 @@ def tensor_core_check(logs: dict) -> None:
 
 
 PHASES = ("kernels", "timing", "serve", "decode", "server", "remote",
-          "hybrid", "ssm", "moe", "train")
+          "hybrid", "ssm", "moe", "multimodal", "train")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -2752,6 +3174,10 @@ def main() -> int:
         print("== moe")
         free_device()
         runs.extend(moe_phase(device))
+    if "multimodal" in phases:
+        print("== multimodal")
+        free_device()
+        runs.extend(multimodal_phase(device))
     if "train" in phases:
         print("== train")
         free_device()
@@ -2763,7 +3189,9 @@ def main() -> int:
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, server, remote, hybrid "
           f"serve, hybrid decode, ssm serve, olmoe serve, olmoe decode, "
-          f"llama4 serve, fp32 train, bf16 train): {runs}")
+          f"llama4 serve, whisper decode, whisper serve, vision decode, "
+          f"vision serve, whisper fp32 train, whisper bf16 train, fp32 "
+          f"train, bf16 train): {runs}")
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
     for name, m in (("ssm_scan", ss), ("wkv6_scan", wk)):

@@ -101,7 +101,12 @@ def arch_layer_costs(cfg: ModelConfig, *, seq_len: int = 512) -> LayerCosts:
     """Block-granularity LayerCosts for an assigned architecture.
 
     A serving request is one prefill of ``seq_len`` tokens (the hybrid-DL
-    analogue of the paper's single-image request).
+    analogue of the paper's single-image request). The units are the
+    model's fragment units (``models.n_fragment_units``): a vlm unit is a
+    superblock of ``cross_attn_every`` self blocks and one cross block,
+    so a plan's pools end at the unit the executor applies the head
+    after. The reference counts vlm units as layers; the per-model sums
+    of ``flops_per_item`` and ``weight_bytes`` are the same either way.
     """
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim_
     H, KV = cfg.n_heads, max(cfg.n_kv_heads, 1)
@@ -148,6 +153,11 @@ def arch_layer_costs(cfg: ModelConfig, *, seq_len: int = 512) -> LayerCosts:
             blk_weights += (4 * d * H * hd + 3 * d * f) \
                 / cfg.vision.cross_attn_every * BYTES_PER_PARAM
 
+    if cfg.family == "vlm":
+        # blk_* amortize one cross block over its E self blocks
+        E = cfg.vision.cross_attn_every
+        L = cfg.n_layers // E
+        blk_flops, blk_weights = blk_flops * E, blk_weights * E
     flops = np.full(L, float(blk_flops))
     weights = np.full(L, float(blk_weights))
     act = np.full(L + 1, float(S * d * BYTES_PER_PARAM))

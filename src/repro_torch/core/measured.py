@@ -1,9 +1,10 @@
 """Measured profiler: build LayerCosts by TIMING a real model.
 
 The paper's profiler measures latency/throughput per (batch, share) on
-GPUs; here each block's ``fragment_forward`` is timed on the params'
-device and the two-parameter latency model the scheduler consumes is
-fitted:
+GPUs; here each fragment unit's ``fragment_forward`` is timed on the
+params' device, with the stub frontend's extras (``models/stubs.py``;
+an audio unit reads the encoder's memory of them), and the
+two-parameter latency model the scheduler consumes is fitted:
 
     lat_l(b) ~ alpha_l + beta_l * b
     => weight_bytes_l = alpha_l * C_m,   flops_l = beta_l * C_f
@@ -26,7 +27,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.costmodel import (LayerCosts, PEAK_FLOPS, HBM_BW,
                                         COMPUTE_EFF, MEMORY_EFF,
                                         BYTES_PER_PARAM)
-from repro_torch.models import embed_tokens, fragment_forward, n_fragment_units
+from repro_torch.models import (embed_tokens, encode_audio, fragment_forward,
+                                make_extras, n_fragment_units)
 
 
 def _time_call(fn, *, reps: int, device: torch.device) -> float:
@@ -50,7 +52,7 @@ def _time_call(fn, *, reps: int, device: torch.device) -> float:
 def measure_layer_costs(cfg: ModelConfig, params, *, seq_len: int = 16,
                         batches=(1, 4), reps: int = 3,
                         mobile_slowdown: float = 200.0) -> LayerCosts:
-    """Time per-block execution of ``cfg`` on ``params``' device; return
+    """Time per-unit execution of ``cfg`` on ``params``' device; return
     LayerCosts.
 
     mobile_slowdown scales server-measured latency into the synthetic
@@ -64,10 +66,15 @@ def measure_layer_costs(cfg: ModelConfig, params, *, seq_len: int = 16,
         for bi, b in enumerate(batches):
             toks = rng.randint(0, cfg.vocab_size, (b, seq_len)).astype(
                 np.int32)
+            extras = make_extras(cfg, b, device=dev)
+            if cfg.family == "audio":
+                extras["memory"] = encode_audio(params, cfg,
+                                                extras["frames"])
             h = embed_tokens(params, cfg, torch.from_numpy(toks).to(dev))
             for l in range(L):
                 lat[bi, l] = _time_call(
-                    lambda: fragment_forward(params, cfg, h, l, l + 1),
+                    lambda: fragment_forward(params, cfg, h, l, l + 1,
+                                             extras=extras or None),
                     reps=reps, device=dev)
     b0, b1 = batches[0], batches[-1]
     beta = np.maximum((lat[-1] - lat[0]) / max(b1 - b0, 1), 1e-9)

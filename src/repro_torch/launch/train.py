@@ -12,7 +12,7 @@ import time
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.tokens import token_batches
-from repro_torch.models import init_params, resolve_device
+from repro_torch.models import init_params, make_extras, resolve_device
 from repro_torch.training import (AdamWConfig, init_opt_state,
                                   make_train_step, restore_checkpoint,
                                   save_checkpoint)
@@ -36,7 +36,7 @@ def main(argv=None):
 
     cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
     device = resolve_device(args.device)
-    params = init_params(cfg, seed=0, device=device)   # unported: raises
+    params = init_params(cfg, seed=0, device=device)
     n = sum(p.numel() for p in tree_leaves(params))
     print(f"{cfg.name}: {n / 1e6:.1f}M params on {device}")
 
@@ -47,10 +47,12 @@ def main(argv=None):
     step_fn = make_train_step(cfg, AdamWConfig(lr=args.lr))
     data = token_batches(batch=args.batch, seq_len=args.seq,
                          vocab=cfg.vocab_size, seed=1)
+    # the vlm/audio stub frontend's embeddings ({} for the other families)
+    extras = make_extras(cfg, args.batch, device=device)
 
     t0 = time.perf_counter()
     for i in range(start, start + args.steps):
-        params, opt, m = step_fn(params, opt, next(data))
+        params, opt, m = step_fn(params, opt, next(data), extras or None)
         if i % 10 == 0 or i == start + args.steps - 1:
             print(f"step {i:4d}  loss {float(m['loss']):.4f}  "
                   f"gnorm {float(m['grad_norm']):.2f}  "

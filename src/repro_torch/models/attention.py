@@ -1,9 +1,9 @@
 """GQA attention block: projections, qk-norm, RoPE, KV-cache management.
 
 Supports GQA (any group size), qk_norm (qwen3/olmoe), QKV bias (qwen2),
-sliding-window attention, cross-attention in the full-sequence forward,
-and one-token decode against plain or ring-buffer KV caches (float or
-int8-quantized).
+sliding-window attention, cross-attention (llama-3.2-vision, whisper)
+in the full-sequence forward and in decode, and one-token decode against
+plain or ring-buffer KV caches (float or int8-quantized).
 
 Decode writes the cache IN PLACE: where the JAX package returns an
 updated copy (``.at[].set``, ``dynamic_update_slice``), :func:`attn_decode`
@@ -104,14 +104,11 @@ def attn_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
     return out
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-                  device) -> dict:
-    """Stacked (over layers) KV cache. cache_len should already account for
-    sliding windows (ring buffer of size min(seq, window))."""
-    dt = torch_dtype(cfg.kv_cache_dtype or cfg.dtype)
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+def project_cross_kv(p: dict, cfg: ModelConfig,
+                     memory: Tensor) -> tuple[Tensor, Tensor]:
+    """Cross-attention k/v of encoder or image memory (B, T, d), computed
+    once at prefill so decode never projects the memory again."""
+    return _project_kv(p, cfg, memory)
 
 
 # ---- int8 KV-cache quantization -------------------------------------------
@@ -159,13 +156,17 @@ def attn_decode(p: dict, cfg: ModelConfig, x: Tensor,
     kv_pos (B,Sc) already holding ``pos`` at this step's slot. Returns
     (out (B,1,d), cache_k, cache_v, scales) — the caches (and the int8
     ``scales`` pair) written in place.
+
+    For cross-attention pass ``cross_kv=(k, v)`` precomputed at prefill
+    (:func:`project_cross_kv`): the query attends to all of it, and the
+    cache arguments are returned untouched.
     """
-    if cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention decode belongs to the vlm/audio slice, which "
-            "is not ported yet")
     B = x.shape[0]
     q = _project_q(p, cfg, x)
+    if cross_kv is not None:
+        k, v = cross_kv
+        o = ops.attention(q, k, v, causal=False)
+        return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v, scales
     k_new, v_new = _project_kv(p, cfg, x)
     if cfg.rope_theta > 0:
         cos, sin = rope_freqs(cfg, pos[:, None])

@@ -114,6 +114,17 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     return out.to(x.dtype)
 
 
+def sinusoid_pos_emb(length: int, dim: int, *, device=None) -> Tensor:
+    """Whisper-style fixed sinusoidal embedding (length, dim), float32."""
+    half = dim // 2
+    inv = torch.exp(-math.log(10_000.0)
+                    * torch.arange(half, dtype=torch.float32, device=device)
+                    / max(half - 1, 1))
+    ang = torch.arange(length, dtype=torch.float32,
+                       device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------

@@ -120,15 +120,21 @@ def mixed_depth_plan(cfg, book, frags, *, s: int = 1, batch: int = 4):
 def check_against_monolithic(cfg, params, reqs, *, atol=5e-5,
                              rtol=1e-3) -> float:
     """Assert each served result equals the un-fragmented forward pass
-    (``|got - want| <= atol + rtol * |want|`` elementwise). Returns the
-    largest absolute difference seen."""
-    from repro_torch.models import forward
+    (``|got - want| <= atol + rtol * |want|`` elementwise), each request's
+    forward fed its own extras: a vlm request's "images", an audio
+    request's "frames" (its served fragments read the "memory" encoded
+    from them). Returns the largest absolute difference seen."""
+    from repro_torch.models import extras_shapes, forward
     dev = params["embed"].device
+    reads = extras_shapes(cfg, 1)
     worst = 0.0
     for req, _p in reqs:
         toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
                                device=dev)[None]
-        want = forward(params, cfg, toks)[0][0].float().cpu().numpy()
+        extras = {k: torch.as_tensor(v).to(dev)
+                  for k, v in (req.extras or {}).items() if k in reads}
+        want = forward(params, cfg, toks, extras=extras or None)[0][0] \
+            .float().cpu().numpy()
         got = req.result.float().numpy()
         np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
         worst = max(worst, float(np.abs(got - want).max()))

@@ -37,11 +37,12 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
     (B, S, V) logits across devices); one card has nothing to gather, and
     a materialised one-hot would cost a (B, S, V) tensor. ``moe_aux`` is
     the forward's router load-balance loss (0 without a router), added
-    at ``router_aux_weight``; ``extras`` (the vlm/audio inputs) is
-    accepted and unused by the ported families."""
+    at ``router_aux_weight``; ``extras`` is the vlm/audio families'
+    input to the forward (stub image or frame embeddings)."""
     if ce_impl not in CE_IMPLS:
         raise ValueError(f"ce_impl {ce_impl!r} not in {CE_IMPLS}")
-    logits, moe_aux = forward(params, cfg, tokens, remat=remat)
+    logits, moe_aux = forward(params, cfg, tokens, extras=extras,
+                              remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
@@ -72,7 +73,11 @@ def loss_and_grads(params: dict, cfg: ModelConfig, tokens: Tensor,
         tree_map(grad, live)
 
 
-def _device_batch(batch: dict, device) -> dict:
+def _device_batch(batch: Optional[dict], device) -> Optional[dict]:
+    """``batch``'s arrays or tensors as tensors on ``device`` (None
+    stays None)."""
+    if batch is None:
+        return None
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, Tensor)
                                else v).to(device) for k, v in batch.items()}
 
@@ -83,11 +88,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     """Returns train_step(params, opt_state, batch[, extras]) ->
     (params, opt_state, metrics), metrics {"loss", "ce", "moe_aux",
     "grad_norm"} as device scalars. ``batch`` holds "tokens" and "labels"
-    (B, S) as numpy arrays or tensors.
+    (B, S) as numpy arrays or tensors; ``extras`` the vlm/audio inputs
+    (B, ...), moved to the params' device like the batch.
 
-    microbatches > 1 = gradient accumulation: the batch is processed in
-    ``microbatches`` sequential slices, each slice's fp32 gradients
-    divided by k and summed; total FLOPs unchanged.
+    microbatches > 1 = gradient accumulation: the batch and its extras
+    are processed in ``microbatches`` sequential slices along the batch,
+    each slice's fp32 gradients divided by k and summed; total FLOPs
+    unchanged.
     """
 
     def grads_of(params, tokens, labels, extras):
@@ -97,6 +104,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
     def train_step(params, opt_state, batch, extras=None):
         dev = tree_leaves(params)[0].device
         b = _device_batch(batch, dev)
+        extras = _device_batch(extras, dev)
         if microbatches <= 1:
             loss, parts, grads = grads_of(params, b["tokens"], b["labels"],
                                           extras)
@@ -112,8 +120,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
             moe_aux = torch.zeros((), dtype=torch.float32, device=dev)
             for i in range(k):
                 sl = slice(i * B // k, (i + 1) * B // k)
+                ex = {n: x[sl] for n, x in extras.items()} if extras \
+                    else None
                 lo, pa, g = grads_of(params, b["tokens"][sl],
-                                     b["labels"][sl], extras)
+                                     b["labels"][sl], ex)
                 grads = tree_map(lambda a, gi: a + gi.float() / k, grads, g)
                 loss = loss + lo / k
                 moe_aux = moe_aux + pa["moe_aux"] / k

@@ -348,12 +348,21 @@ def test_decode_step_teacher_forced_matches_jax(dense, kind):
 
 
 def test_other_families_name_their_slice():
-    """vlm and audio decode raise naming their slice; moe decodes (its
-    parity with JAX is in tests/test_torch_moe.py)."""
-    for arch, slice_name in (("llama-3.2-vision-90b", "vlm/audio slice"),
-                             ("whisper-base", "vlm/audio slice")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            tdec.init_cache(get_smoke_config(arch), 1, 8, device="cpu")
+    """vlm and audio caches have JAX's keys, shapes and dtypes (their
+    decode parity is in tests/test_torch_multimodal.py), the int8 scales
+    included; moe decodes (its parity with JAX is in
+    tests/test_torch_moe.py)."""
+    for arch in ("llama-3.2-vision-90b", "whisper-base"):
+        for kv in (None, "int8"):
+            cfg = dataclasses.replace(get_smoke_config(arch),
+                                      kv_cache_dtype=kv)
+            jcfg = dataclasses.replace(j_smoke_config(arch),
+                                       kv_cache_dtype=kv)
+            got = tdec.init_cache(cfg, 2, 8, device="cpu")
+            want = jdec.init_cache(jcfg, 2, 8)
+            assert {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                    for k, v in got.items()} == \
+                {k: (tuple(v.shape), str(v.dtype)) for k, v in want.items()}
     cfg = get_smoke_config("olmoe-1b-7b")
     params = TM.init_params(cfg, device="cpu")
     logits, cache = tdec.prefill(params, cfg, torch.zeros((1, 5),

@@ -88,6 +88,15 @@ CASES = [  # B, Sq, Sk, H, KV, hd, causal, window, segments, fused qkv
     (2, 512, 512, 16, 16, 128, True, 0, None, False),
     # llama4-scout (GQA 5, hd 128)
     (1, 1024, 1024, 40, 8, 128, True, 0, None, False),
+    # whisper-base (8 heads of 64, 1500 frames): the encoder, the decoder's
+    # cross-attention (non-causal, Sq != Sk, a ragged last kv tile), and
+    # the same in decode (Sq = 1: a q tile with one live row)
+    (2, 1500, 1500, 8, 8, 64, False, 0, None, False),
+    (2, 448, 1500, 8, 8, 64, False, 0, None, False),
+    (4, 1, 1500, 8, 8, 64, False, 0, None, False),
+    # llama-3.2-vision (64 heads / 8 kv of 128, 1601 image tokens)
+    (2, 200, 1601, 64, 8, 128, False, 0, None, False),
+    (3, 1, 1601, 64, 8, 128, False, 0, None, False),
 ]
 
 
@@ -110,6 +119,26 @@ def test_kernels_match_plain_versions(cuda, dtype, case):
         torch.testing.assert_close(o.float(), o2.float(), atol=atol,
                                    rtol=rtol)
         torch.testing.assert_close(lse, lse2, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_decode_reads_views_of_a_stacked_cache(cuda, dtype):
+    """Decode's cross-attention reads ``img_k[g]`` / ``xk[l]``, views of
+    one stacked cache (G, B, T, KV, hd): the kernel on each view equals
+    the plain version on a contiguous copy, and its TMA (bf16) takes the
+    views' offset bases."""
+    g = torch.Generator().manual_seed(3)
+    G, B, T, H, KV, hd = 2, 3, 1601, 64, 8, 128
+    kc, vc = (torch.randn((G, B, T, KV, hd), generator=g).to(
+        device=cuda, dtype=dtype) for _ in range(2))
+    q = torch.randn((B, 1, H, hd), generator=g).to(device=cuda, dtype=dtype)
+    atol, rtol = TOL[dtype]
+    for i in range(G):
+        o, _ = fa.flash_attention_lse(q, kc[i], vc[i], causal=False)
+        want, _ = fa.flash_attention_lse_plain(
+            q, kc[i].clone(), vc[i].clone(), causal=False)
+        torch.testing.assert_close(o.float(), want.float(), atol=atol,
+                                   rtol=rtol)
 
 
 def test_wrappers_count_launches(cuda):
@@ -204,6 +233,8 @@ DECODE_CASES = [  # B, Sk, H, KV, hd, q_pos, ring, window
     (3, 1100, 25, 5, 64, [1099, 700, 30], False, 1024),  # hymba GQA 5
     (4, 512, 16, 16, 128, [511, 300, 64, 5], False, 0),  # olmoe GQA 1
     (4, 512, 40, 8, 128, [511, 300, 64, 5], False, 0),   # llama4 GQA 5
+    (4, 448, 8, 8, 64, [447, 200, 31, 16], False, 0),    # whisper self
+    (3, 216, 64, 8, 128, [215, 100, 17], False, 0),      # vision self
 ]
 
 
@@ -291,6 +322,63 @@ def test_decode_serving_on_the_card_runs_the_kernels(cuda):
     assert r["aborted"] == [0] and r["mid_admits"] >= 1
     for (_, toks), got in list(zip(prompts, r["tokens"]))[1:]:
         assert got == reference_decode(cfg, params, toks, 6)
+
+
+def test_whisper_serving_and_decode_on_the_card_run_the_kernels(cuda):
+    """whisper-base (smoke widths, 3 decoder layers) on the card: a
+    re-aligned plan serves requests whose fragments read the encoder's
+    memory, each result equal to its own forward, launching
+    ``flash_attention_lse`` (self and cross); prefill + decode_step
+    greedy streams equal the forward re-run on the grown sequence and
+    launch ``decode_attention`` (self) and ``flash_attention_lse`` (the
+    cross-attention at Sq = 1)."""
+    from repro_torch.core import Fragment
+    from repro_torch.models import encode_audio, forward, make_extras
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.serving import GraftExecutor, ServeRequest
+    from repro_torch.serving.smoke import (check_against_monolithic,
+                                           mixed_depth_plan, smoke_setup)
+
+    cfg, book, params = smoke_setup("whisper-base", n_layers=3)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    frags = [Fragment(cfg.name, p, 50.0, 30.0, client=f"c{i}")
+             for i, p in enumerate((0, 1, 1))]
+    rng = np.random.RandomState(0)
+    reqs = []
+    for f, n in zip(frags, (17, 40, 9)):
+        ex = make_extras(cfg, 1, gen)
+        ex["memory"] = encode_audio(params, cfg, ex["frames"])
+        reqs.append((ServeRequest(client=f.client, extras=ex,
+                                  tokens=rng.randint(0, cfg.vocab_size, n)
+                                  .astype(np.int32)), f.p))
+    fa.reset_launches()
+    da.reset_launches()
+    with GraftExecutor(mixed_depth_plan(cfg, book, frags, s=1), params,
+                       cfg) as ex:
+        ex.serve(reqs)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_lse"] > 0
+    check_against_monolithic(cfg, params, reqs)
+    fa.reset_launches()
+    for req, _ in reqs[:2]:
+        frames = {"frames": req.extras["frames"]}
+        toks = torch.as_tensor(req.tokens, device=cuda)[None]
+        with torch.no_grad():
+            logits, cache = prefill(params, cfg, toks, extras=frames,
+                                    cache_seq=toks.shape[1] + 6)
+            out = [int(logits[0, -1].argmax())]
+            for _ in range(5):
+                step = torch.tensor([[out[-1]]], dtype=torch.int32,
+                                    device=cuda)
+                logits, cache = decode_step(params, cfg, cache, step)
+                out.append(int(logits[0, -1].argmax()))
+            seq = torch.cat([toks[0], torch.tensor(out, device=cuda,
+                                                   dtype=toks.dtype)])
+            full = forward(params, cfg, seq[None], extras=frames)[0][0]
+        assert out == full[toks.shape[1] - 1:-1].argmax(-1).tolist()
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] > 0
+    assert fa.LAUNCHES["flash_attention_lse"] > 0
 
 
 # ------------------------------------------------------- recurrent scans

@@ -214,12 +214,21 @@ def test_init_params_without_device_needs_a_card():
 
 
 def test_only_dense_is_ported():
-    """The families still to port (vlm, audio) raise; dense, moe, hybrid
-    and ssm build, and a moe model serves its fragments (the aux loss
-    comes back with the forward's logits)."""
-    for arch in ("llama-3.2-vision-90b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TM.init_params(get_smoke_config(arch), device="cpu")
+    """Every family builds now (its parity with JAX is in the family's
+    own test file): vlm with two leading block axes beside its cross
+    blocks, audio with its encoder; a moe model serves its fragments
+    (the aux loss comes back with the forward's logits)."""
+    vlm = get_smoke_config("llama-3.2-vision-90b")
+    tp = TM.init_params(vlm, device="cpu")
+    E = vlm.vision.cross_attn_every
+    assert tp["blocks"]["attn"]["wq"].shape[:2] == (vlm.n_layers // E, E)
+    assert set(tp["cross_blocks"]) == {"ln1", "ln2", "xattn", "mlp",
+                                       "gate_attn", "gate_mlp"}
+    audio = get_smoke_config("whisper-base")
+    tp = TM.init_params(audio, device="cpu")
+    assert tp["enc_blocks"]["attn"]["wq"].shape[0] == \
+        audio.audio.n_encoder_layers
+    assert {"xattn", "lnx"} <= set(tp["blocks"]) and "enc_norm" in tp
     for arch in ("qwen3-1.7b", "hymba-1.5b", "rwkv6-7b"):
         assert TM.init_params(get_smoke_config(arch), device="cpu")["blocks"]
     for arch in ("olmoe-1b-7b", "llama4-scout-17b-a16e"):

@@ -503,7 +503,8 @@ def test_token_batches_match_jax():
 def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     """launch.train --device cpu: 2 steps of a smoke config, a checkpoint,
     then a resumed run from it; a moe smoke config takes a step (its
-    loss carries the router aux); an unported family raises."""
+    loss carries the router aux), and so does whisper-base's (the stub's
+    frames go with every step)."""
     from repro_torch.launch.train import main
     ckpt = os.path.join(tmp_path, "ckpt")
     args = ["--arch", "qwen3-1.7b", "--device", "cpu", "--steps", "2",
@@ -520,5 +521,9 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
                  "1", "--batch", "2", "--seq", "16"]) == 0
     out = capsys.readouterr().out
     assert "olmoe-1b-7b-smoke" in out and "step    0" in out
-    with pytest.raises(NotImplementedError):
-        main(["--arch", "whisper-base", "--device", "cpu", "--steps", "1"])
+    assert main(["--arch", "whisper-base", "--device", "cpu", "--steps",
+                 "1", "--batch", "2", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    step = [ln for ln in out.splitlines() if ln.startswith("step    0")]
+    assert "whisper-base-smoke" in out and len(step) == 1
+    assert np.isfinite(float(step[0].split()[3]))
