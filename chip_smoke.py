@@ -173,15 +173,43 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    (worst leaf's relative L2 within ``BF16_GRAD_REL_L2``), and steps
    launching the forward, dq and dkv exactly as the float32 steps do,
    timed, and one profiled.
-Each model is freed before the next one loads. The launch counts in the
+12. launch — qwen3-1.7b at its published widths (28 layers, bf16,
+   random seeded weights) through ``launch.specs.entry_fn`` at each
+   workload shape with only the batch cut to fit one H100 80GB (each cut
+   printed): ``prefill`` of 32,768 tokens (B 32 -> 1), ``decode_step``
+   against a 32,768-slot cache whose every slot holds random k/v (B 128
+   -> 4), against long_500k's 4,096-slot ring (B 1), and one AdamW step
+   of 4,096 tokens with remat (B 256 -> 1). Each entry launches its
+   kernels exactly once per attention (twice per layer for the forward
+   under remat); the first captured calls are held against their plain
+   versions (row 2's last 512 query rows over every key at 32k, row 3 on
+   the same cache, rows 2, 4 and 5 on the train step's q, k, v, o, lse
+   and dO) and timed beside SDPA and their bound; each entry's wall
+   (host clock, ended by a synchronize), its device time by kernel
+   group, and ``launch/roofline.py``'s compute and memory terms for the
+   same config and batch (the meta run) with the wall's share of the
+   larger are printed. Then ``python -m repro_torch.launch.dryrun
+   --shape all --mesh 1xH100`` runs for every arch, one process each at
+   once (meta device: one core each, no device work), after the timed
+   entries; its report table and each combo's ``fits_80gb`` are
+   printed.
+13. examples — each example twin (``examples/*_torch.py``) in this
+   process through ``runpy``: the realign demo, the quickstart (each
+   served request within the serving tolerance of the forward), the
+   serving driver, online serving in the simulator, in in-process and
+   socket waves and in the event-driven loop, long-context decode; each
+   must exit 0, print its numerics line and launch its kernels.
+Each phase prints its seconds. Each model is freed before the next one
+loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model
 (both dispatches' waves for the moe models), the multimodal phase's
 float32 waves and decode streams and its whisper train steps,
 the float32 server loop and its disaggregated streams, the float32
 remote executor's waves and fleet loop (launches in the workers and in
-this process), and the float32 AdamW steps and timed bfloat16 steps, each path's
-counters zeroed just before it and read just after.
+this process), the float32 AdamW steps and timed bfloat16 steps, the
+launch phase's four counted entries and the examples run in this
+process, each path's counters zeroed just before it and read just after.
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it the kernels' JSON record, and the last line the result:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -189,6 +217,7 @@ one before it the kernels' JSON record, and the last line the result:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -196,6 +225,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -268,6 +298,29 @@ def check_close(name, got, want, atol, rtol):
           f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
+    return e
+
+
+def check_scaled(name, got, want, tol, roll_dim):
+    """``check_close`` with ``atol`` = ``tol[0]`` times max |want|: at a
+    long context the outputs (and gradients) are far below 1, where a
+    fixed atol would hold nothing. The same check must refuse an
+    all-zero output and ``want`` rolled by one along ``roll_dim`` (heads,
+    say): else it could not see a kernel that writes nothing or writes
+    a neighbour's rows. Prints the relative L2 error too."""
+    import torch
+    got, want = got.detach(), want.detach()
+    scale = want.float().abs().max().item()
+    atol, rtol = tol[0] * scale, tol[1]
+    print(f"  {name}: max |want| {scale:.3e}, relative L2 "
+          f"{rel_l2(got, want):.3e}")
+    e = check_close(name, got, want, atol, rtol)
+    for what, bad in (("zeros", torch.zeros_like(want)),
+                      ("a rolled copy", want.roll(1, roll_dim))):
+        if torch.allclose(bad.float(), want.float(), atol=atol, rtol=rtol):
+            fail(f"{name}: the check would pass {what}")
+    print(f"  {name}: zeros and a copy rolled along dim {roll_dim} fail "
+          "the same check")
     return e
 
 
@@ -2982,6 +3035,459 @@ def train_phase(device, cfg=None, *, batch=TRAIN_B, seq=TRAIN_S) -> list:
     return [launches, launches16]
 
 
+# ---------------------------------------------------------------------------
+# launch: the workload entries of launch/specs.py at full width
+# ---------------------------------------------------------------------------
+
+LAUNCH_ARCH = "qwen3-1.7b"
+# (workload shape, its global batch cut to fit one H100 80GB)
+LAUNCH_SHAPES = (("prefill_32k", 1), ("decode_32k", 4), ("long_500k", 1),
+                 ("train_4k", 1))
+LAUNCH_ROWS = 512             # prefill: the kernel's last query rows held
+DRYRUN_TIMEOUT_S = 900
+
+
+@contextlib.contextmanager
+def first_call(module, name: str, store: dict):
+    """``module.name`` (a kernel wrapper, or a module's reference to one)
+    wrapped so that its first call's arguments, keywords and result land
+    in ``store``."""
+    orig = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        out = orig(*args, **kw)
+        if not store:
+            store.update(args=args, kw=kw, out=out)
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def launch_inputs(shape_name, batch, device, gen) -> dict:
+    """``specs.input_specs`` on the card at ``batch``: the seeded bf16
+    weights, random tokens, and for decode a cache of random k and v
+    whose every slot is valid: it holds the last ``Sc`` positions before
+    the step's (slot = position mod Sc), the step at position S - 1."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import specs
+    s = specs.input_specs(LAUNCH_ARCH, shape_name, batch=batch,
+                          device=device)
+    V = s["cfg"].vocab_size
+
+    def tokens(like):
+        return torch.randint(0, V, tuple(like.shape), generator=gen,
+                             device=device, dtype=torch.int32)
+    if "batch" in s:
+        s["batch"] = {k: tokens(t) for k, t in s["batch"].items()}
+    if "tokens" in s:
+        s["tokens"] = tokens(s["tokens"])
+    if "cache" in s:
+        c, S = s["cache"], SHAPES[shape_name].seq_len
+        Sc = c["kv_pos"].shape[1]
+        c["k"].normal_(generator=gen)
+        c["v"].normal_(generator=gen)
+        held = torch.arange(S - Sc, S, dtype=torch.int32, device=device)
+        kvp = torch.empty(Sc, dtype=torch.int32, device=device)
+        kvp[(held % Sc).long()] = held
+        c["kv_pos"] = kvp[None].expand(batch, Sc).contiguous()
+        c["pos"] = torch.full((batch,), S - 1, dtype=torch.int32,
+                              device=device)
+    return s
+
+
+def launch_checks(kind, fwd, bwd, dec, worst) -> None:
+    """The captured kernel calls of one entry against their plain
+    versions, in bf16: the prefill's last LAUNCH_ROWS query rows against
+    the plain attention over those rows and every key, a decode call
+    against ``attend_cache``'s plain version on the same cache, a train
+    step's forward and its FA-2 backward against the plain forward and
+    the backward's plain formulas on that layer's q, k, v, o, lse and
+    dO. Each is held at bf16's tolerance scaled to its largest reference
+    value (``check_scaled``): at 32,768 keys |o| is about 0.01, and the
+    gradients of one step are about 1e-6."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ref
+    tol = TOL["bfloat16"]
+    if kind in ("prefill", "train"):
+        q, k, v = fwd["args"]
+        o, lse = fwd["out"]
+        B, S = q.shape[:2]
+        n = LAUNCH_ROWS if kind == "prefill" else S
+        ar = torch.arange(S, dtype=torch.int32,
+                          device=q.device)[None].expand(B, S)
+        want_o, want_lse = ref.ref_attention(
+            q[:, S - n:], k, v, q_pos=ar[:, S - n:], kv_pos=ar,
+            return_lse=True, **fwd["kw"])
+        torch.cuda.synchronize()
+        tag = f"{kind} layer 0, {tuple(q.shape)} rows {S - n}..{S - 1}"
+        e = check_scaled(f"flash_attention_lse o {tag}", o[:, S - n:],
+                         want_o, tol, 2)
+        check_close(f"flash_attention_lse lse {tag}", lse[:, :, S - n:],
+                    want_lse, LSE_ATOL, 0.0)
+        worst["flash_attention_lse"][("bfloat16", f"launch {kind}")] = e
+    if kind == "train":
+        got = bwd["out"]
+        want = fab.flash_attention_bwd_plain(*bwd["args"], **bwd["kw"])
+        torch.cuda.synchronize()
+        tag = f"train, {tuple(bwd['args'][0].shape)}"
+        e = [check_scaled(f"flash_attention_bwd {n} {tag}", g, w, tol, 2)
+             for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        worst["flash_attention_bwd_dq"][("bfloat16", "launch train")] = e[0]
+        worst["flash_attention_bwd_dkv"][("bfloat16", "launch train")] = \
+            max(e[1:])
+    if kind == "decode":
+        want = da.decode_attention_plain(*dec["args"], **dec["kw"])
+        torch.cuda.synchronize()
+        k = dec["args"][1]
+        e = check_scaled(f"decode_attention decode layer 0, cache "
+                         f"{tuple(k.shape)} {dec['kw']}", dec["out"], want,
+                         tol, 2)
+        worst["decode_attention"][("bfloat16", f"launch Sk {k.shape[1]}")] \
+            = e
+
+
+def launch_timing(kind, fwd, bwd, dec, cache) -> None:
+    """Rows 2-5 at the workload shapes, on the captured main-path inputs
+    (bf16): the kernel's device ms per call (``time_ms``, CUDA events),
+    one SDPA call's on the same inputs, and the bound (bytes in and out
+    once against the FLOPs of the valid pairs, as ``timing_phase``
+    counts them). Decode calls rotate over the cache's 28 layers (L2
+    cold, as a step finds them); the others are L2 warm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels.ref import _mask
+
+    def show(name, shape, ms, lib_ms, nbytes, flops, note=""):
+        bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+        print(f"    time {name} bf16 {shape}: kernel {ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x), bound {bms:.4f} ms "
+              f"({by}: {nbytes} B, {flops:.4e} FLOP; {100 * bms / ms:.1f}% "
+              f"of it){note}; device times")
+    if kind in ("prefill", "train"):
+        # detached: the train step's q, k and v require grad, and the
+        # forward kernel alone refuses inputs that do
+        q, k, v = (t.detach() for t in fwd["args"])
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        if fwd["kw"].get("window") or not fwd["kw"].get("causal", True):
+            fail(f"launch timing: an unexpected mask {fwd['kw']}")
+        pairs = B * H * S * (S + 1) // 2
+        rows = B * H * S * 4
+        big, kvb = B * S * H * hd * 2, B * S * KV * hd * 2
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        show("flash_attention_lse", (B, S, S, H, KV, hd),
+             time_ms(lambda: fa.flash_attention_lse(q, k, v,
+                                                    **fwd["kw"]))[0],
+             time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True))[0],
+             2 * big + 2 * kvb + rows, 4.0 * hd * pairs,
+             ", library SDPA is_causal")
+    if kind == "train":
+        q, k, v, o, lse, do = (t.detach() for t in bwd["args"])
+        _, dvec = fab.launch_dq(q, k, v, o, lse, do, **bwd["kw"])
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True))[0]
+        note = ", library the whole SDPA backward"
+        show("flash_attention_bwd_dq", tuple(q.shape),
+             time_ms(lambda: fab.launch_dq(q, k, v, o, lse, do,
+                                           **bwd["kw"]))[0], lib,
+             4 * big + 2 * kvb + 2 * rows, 6.0 * hd * pairs, note)
+        show("flash_attention_bwd_dkv", tuple(q.shape),
+             time_ms(lambda: fab.launch_dkv(q, k, v, lse, do, dvec,
+                                            **bwd["kw"]))[0], lib,
+             2 * big + 4 * kvb + 2 * rows, 8.0 * hd * pairs, note)
+    if kind == "decode":
+        q, _, _, qp, kp = dec["args"]
+        window = dec["kw"].get("window", 0)
+        B, _, H, hd = q.shape
+        L, _, Sk, KV, _ = cache["k"].shape
+        copies = [(q, cache["k"][i], cache["v"][i], qp, kp)
+                  for i in range(L)]
+        mask = _mask(qp[:, None], kp, causal=True, window=window)
+        pairs = int(mask.sum().item()) * H
+        m4 = mask[:, None].expand(B, H, 1, Sk)
+        lib = [(q.transpose(1, 2), c[1].transpose(1, 2), c[2].transpose(1, 2))
+               for c in copies]
+        show("decode_attention", (B, Sk, H, KV, hd),
+             time_ms(rotating(lambda *a: da.decode_attention(
+                 *a, window=window), copies))[0],
+             time_ms(rotating(
+                 lambda qt, kt, vt: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=m4, enable_gqa=True), lib))[0],
+             (2 * q.numel() + 2 * B * Sk * KV * hd) * 2 + qp.numel() * 4
+             + kp.numel() * 4, 4.0 * hd * pairs,
+             f", window {window}, L2 cold ({L} layers in turn), library "
+             "SDPA with a boolean mask")
+
+
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun_1xH100")
+
+
+def stop(proc) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dryrun_sweep() -> None:
+    """``python -m repro_torch.launch.dryrun --arch <a> --shape all
+    --mesh 1xH100`` for every arch, one process each, all at once (each
+    runs on the meta device: one host core, no device work), waited
+    for: the sweep of ``--arch all`` in a tenth of its time, and it
+    shares the host with no phase that is timed. Prints the report table
+    and each combo's ``fits_80gb``; fails unless every combo was
+    analysed."""
+    import shutil
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import report
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    t = time.perf_counter()
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", "all", "--mesh", "1xH100", "--out",
+         os.path.join(DRYRUN_DIR, f"{a}.jsonl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=HERE) for a in ARCH_IDS}
+    try:
+        outs = {a: p.communicate(timeout=max(
+            1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t)))[0]
+            for a, p in procs.items()}
+    finally:
+        for p in procs.values():
+            stop(p)
+    for a, p in procs.items():
+        last = outs[a].strip().splitlines()[-1] if outs[a].strip() else ""
+        print(f"  dry-run {a}: {last!r} (exit {p.returncode})")
+        if p.returncode != 0:
+            print(outs[a][-4000:])
+            fail(f"launch.dryrun --arch {a} --shape all --mesh 1xH100 "
+                 "failed")
+    recs = report.load([os.path.join(DRYRUN_DIR, f"{a}.jsonl")
+                        for a in ARCH_IDS])
+    print(f"  dry-run: {len(recs)} combos in {time.perf_counter() - t:.1f} "
+          f"s ({len(ARCH_IDS)} processes)")
+    print(report.roofline_table(recs, mesh="1xH100"))
+    for r in recs:
+        m = r["memory"]
+        print(f"  fits_80gb {r['arch']} {r['shape']} (batch "
+              f"{r['global_batch']}): {r['fits_80gb']} (args "
+              f"{m['argument_bytes'] / 1e9:.2f} GB + temp "
+              f"{m['temp_bytes'] / 1e9:.2f} GB)")
+
+
+def launch_phase(device) -> tuple:
+    """qwen3-1.7b at its published widths, all 28 layers, bf16, through
+    ``launch.specs.entry_fn`` at each workload shape with only the batch
+    cut to fit one H100 80GB: ``prefill`` of 32,768 tokens (row 2 at Sq =
+    Sk = 32,768), ``decode_step`` against a full 32,768-slot cache (row 3)
+    and against long_500k's 4,096-slot ring (row 3), one AdamW step at
+    4,096 tokens with remat (rows 2, 4 and 5). Each entry runs three
+    times: counted (launches exactly one per attention, the first
+    layer's kernel calls held against their plain versions, then timed
+    on those inputs beside SDPA and their bound: ``launch_timing``),
+    timed on the host clock ended by a synchronize, and profiled (device
+    time by kernel group); then its roofline terms on the meta device
+    (``launch.dryrun``) at the same batch, and the timed wall's share of
+    the larger one. Then, after the timed entries, the dry-run of every
+    arch and shape on one H100 (``dryrun_sweep``) and every combo's
+    ``fits_80gb``. Returns (each entry's launch counts, the kernel
+    checks' largest errors by kernel)."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, specs
+
+    runs, worst = [], {"flash_attention_lse": {}, "decode_attention": {},
+                       "flash_attention_bwd_dq": {},
+                       "flash_attention_bwd_dkv": {}}
+    gen = torch.Generator(device=device).manual_seed(23)
+    # what else holds the host as the walls are taken: threads earlier
+    # phases left in this process (their Python competes for the GIL)
+    kinds = {t.name.rstrip("0123456789-_") for t in threading.enumerate()}
+    print(f"  live threads in this process: {threading.active_count()} "
+          f"({sorted(kinds)})")
+    for shape_name, batch in LAUNCH_SHAPES:
+        shape = SHAPES[shape_name]
+        cut = dataclasses.replace(shape, global_batch=batch)
+        s = launch_inputs(shape_name, batch, device, gen)
+        cfg = s["cfg"]
+        L = cfg.n_layers
+        fn = specs.entry_fn(cfg, cut, train_remat=True)
+        if shape.kind == "train":
+            args = (s["params"], s["opt_state"], s["batch"])
+            need = {"flash_attention_lse": 2 * L,
+                    "flash_attention_bwd_dq": L,
+                    "flash_attention_bwd_dkv": L}
+        elif shape.kind == "prefill":
+            args = (s["params"], s["tokens"])
+            need = {"flash_attention_lse": L}
+        else:
+            args = (s["params"], s["cache"], s["tokens"])
+            need = {"decode_attention": L}
+        grad = torch.enable_grad() if shape.kind == "train" \
+            else torch.no_grad()
+
+        def run():
+            t = time.perf_counter()
+            with grad:
+                out = fn(*args)
+            torch.cuda.synchronize()
+            del out
+            return time.perf_counter() - t
+        sc = s.get("cache", {})
+        print(f"  {shape_name}: {cfg.name} {L} layers {cfg.dtype}, "
+              f"batch {shape.global_batch} -> {batch}, S "
+              f"{shape.seq_len}" + (f", cache {tuple(sc['k'].shape)} "
+                                    f"window {cfg.sliding_window}"
+                                    if sc else ""))
+        fwd, bwd, dec = {}, {}, {}
+        reset_launches()                  # this entry's path starts
+        with first_call(fab, "flash_attention_lse", fwd), \
+                first_call(fab, "flash_attention_bwd", bwd), \
+                first_call(ops, "decode_attention", dec):
+            w0 = run()
+        launches = read_launches()        # ... and ends here
+        runs.append(launches)
+        got = {n: launches[n] for n in need}
+        print(f"    counted run {w0:.4f} s; launches {got}")
+        if got != need or sum(launches.values()) != sum(need.values()):
+            fail(f"{shape_name}: launches {launches}, expected {need}")
+        launch_checks(shape.kind, fwd, bwd, dec, worst)
+        launch_timing(shape.kind, fwd, bwd, dec, sc)
+        del fwd, bwd, dec
+        wall = run()
+        profile_run(f"{shape_name} (bf16, batch {batch}) profiled", run)
+        rec = dryrun.dryrun_one(LAUNCH_ARCH, shape_name, batch=batch,
+                                verbose=False)
+        if not rec["ok"]:
+            fail(f"dryrun {shape_name}: {rec['error']}")
+        ro = rec["roofline"]
+        top = max(ro["compute_s"], ro["memory_s"])
+        print(f"    wall {wall:.4f} s (host clock, ended by a "
+              f"synchronize); roofline (launch/roofline.py, the meta "
+              f"run at batch {batch}): compute {ro['compute_s']:.6f} s "
+              f"({ro['flops']:.4e} FLOPs, plain attention: every pair),"
+              f" memory {ro['memory_s']:.6f} s ({ro['hbm_bytes']:.4e} "
+              f"B), {ro['dominant']}-bound; the larger is "
+              f"{100 * top / wall:.1f}% of the wall")
+        del s, args, fn, sc
+        free_device()
+    dryrun_sweep()
+    return runs, worst
+
+
+# ---------------------------------------------------------------------------
+# examples: the example twins on the card, in this process
+# ---------------------------------------------------------------------------
+
+# (script, arguments, the line that must print, kernels that must launch)
+EXAMPLE_RUNS = (
+    ("realign_demo_torch.py", (), r"^Graft total \d+% vs GSLICE", ()),
+    ("quickstart_torch.py", (), r"\|err vs monolithic\| = ",
+     ("flash_attention",)),
+    ("serve_cluster_torch.py", ("--seconds", "8", "--clients", "4"),
+     r"^served \d+ real requests", ("flash_attention",)),
+    ("online_serving_torch.py", ("--seconds", "6"),
+     r"^controller e2e latency", ()),
+    ("online_serving_torch.py", ("--transport", "inprocess", "--waves", "2",
+                                 "--clients", "2"),
+     r"^numerics matched the monolithic forward pass on every wave$",
+     ("flash_attention",)),
+    ("online_serving_torch.py", ("--transport", "socket", "--waves", "2",
+                                 "--clients", "2"),
+     r"^numerics matched the monolithic forward pass on every wave$", ()),
+    ("online_serving_torch.py", ("--transport", "inprocess", "--loop",
+                                 "--seconds", "4", "--clients", "2",
+                                 "--rate", "4"),
+     r"numerics matched monolithic forward on all [1-9]\d* checked",
+     ("flash_attention",)),
+    ("longcontext_torch.py", ("--steps", "24"), r"decode state after",
+     ("flash_attention_lse", "decode_attention", "ssm_scan",
+      "wkv6_scan")),
+)
+
+
+class Tee:
+    """A stdout that prints through and keeps what it printed."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def examples_phase(device) -> list:
+    """Each example twin (``examples/*_torch.py``) on the card, run here
+    through ``runpy`` with a patched ``sys.argv`` (so the kernel
+    counters see its launches; a socket wave's workers count their own):
+    the realign demo, the quickstart (each served request within the
+    serving tolerance of the forward), the serving driver, online serving
+    in the simulator, in in-process and socket waves and in the
+    event-driven loop, and long-context decode (rwkv6, hymba and qwen2
+    smoke configs). Fails when a twin exits non-zero, does not print its
+    numerics line or does not launch its kernels. Returns each run's
+    launch counts."""
+    import runpy
+    runs = []
+    for script, argv, line, need in EXAMPLE_RUNS:
+        print(f"  -- {script} {' '.join(argv)}")
+        tee = Tee(sys.stdout)
+        saved = sys.argv
+        sys.argv = [script, *argv]
+        reset_launches()                      # this twin's path starts
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                runpy.run_path(os.path.join(HERE, "examples", script),
+                               run_name="__main__")
+        except SystemExit as e:
+            if e.code not in (0, None):
+                fail(f"{script} {argv} exited {e.code}")
+        finally:
+            sys.argv = saved
+        launches = read_launches()            # ... and ends here
+        runs.append(launches)
+        text = tee.text()
+        print(f"  {script}: {time.perf_counter() - t:.1f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        if not re.search(line, text, re.M):
+            fail(f"{script} {argv} printed no line matching {line!r}")
+        for err in re.findall(r"\|err vs monolithic\| = (\S+)", text):
+            if float(err) > SERVE_ATOL:
+                fail(f"{script}: served logits {err} from the forward")
+        missing = [n for n in need if not launches[n]]
+        if missing:
+            fail(f"{script} {argv} launched no {missing}")
+        free_device()
+    return runs
+
+
 def ptxas_usage(log: str) -> dict:
     """{kernel (mangled): {"registers": n, "spills": text}} from an
     ``nvcc -Xptxas -v`` log."""
@@ -3066,7 +3572,8 @@ def tensor_core_check(logs: dict) -> None:
 
 
 PHASES = ("kernels", "timing", "serve", "decode", "server", "remote",
-          "hybrid", "ssm", "moe", "multimodal", "train")
+          "hybrid", "ssm", "moe", "multimodal", "train", "launch",
+          "examples")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -3126,62 +3633,82 @@ def main() -> int:
     if not set(phases) <= set(PHASES):
         fail(f"unknown phases {phases}; known: {PHASES}")
     runs = []                           # launch counts of each path
-    if "kernels" in phases:
-        print("== kernels")
-        tensor_core_check(logs)
-        worst = kernel_phase(device)
-    if "timing" in phases:
-        print("== timing")
-        timing = timing_phase(device)
-    if "serve" in phases:
-        print("== serve")
-        runs.append(serve_phase(device, need=("flash_attention",
-                                              "flash_attention_lse"),
-                                after_fp32=rounding_sweep((28,))))
-    if "decode" in phases:
-        print("== decode")
-        runs.append(decode_phase(device))
-    if "server" in phases:
-        print("== server")
-        free_device()
-        runs.append(server_phase(device))
-    if "remote" in phases:
-        print("== remote")
-        free_device()
-        runs.append(remote_phase(device))
-    if "hybrid" in phases:
-        print("== hybrid")
-        free_device()
-        runs.append(serve_phase(device, "hymba-1.5b", seed=2, hi=1536,
-                                n_long=1, exact=True,
-                                need=("flash_attention_lse", "ssm_scan"),
-                                after_fp32=rounding_sweep((4, 8, 16, 32))))
-        free_device()
-        runs.append(decode_phase(device, "hymba-1.5b",
-                                 need=("decode_attention",
-                                       "flash_attention_lse", "ssm_scan")))
-    if "ssm" in phases:
-        print("== ssm")
-        free_device()
-        sweep = rounding_sweep((2, 4, 8, 16, 32))
 
-        def rwkv_checks(cfg, params):
-            sweep(cfg, params)
-            ssm_steps_check(cfg, params)
-        runs.append(serve_phase(device, "rwkv6-7b", seed=3, exact=True,
-                                need=("wkv6_scan",), after_fp32=rwkv_checks))
+    @contextlib.contextmanager
+    def phase(name):
+        print(f"== {name}")
+        t = time.perf_counter()
+        yield
+        print(f"== {name} took {time.perf_counter() - t:.1f} s")
+    if "kernels" in phases:
+        with phase("kernels"):
+            tensor_core_check(logs)
+            worst = kernel_phase(device)
+    if "timing" in phases:
+        with phase("timing"):
+            timing = timing_phase(device)
+    if "serve" in phases:
+        with phase("serve"):
+            runs.append(serve_phase(device, need=("flash_attention",
+                                                  "flash_attention_lse"),
+                                    after_fp32=rounding_sweep((28,))))
+    if "decode" in phases:
+        with phase("decode"):
+            runs.append(decode_phase(device))
+    if "server" in phases:
+        with phase("server"):
+            free_device()
+            runs.append(server_phase(device))
+    if "remote" in phases:
+        with phase("remote"):
+            free_device()
+            runs.append(remote_phase(device))
+    if "hybrid" in phases:
+        with phase("hybrid"):
+            free_device()
+            runs.append(serve_phase(device, "hymba-1.5b", seed=2, hi=1536,
+                                    n_long=1, exact=True,
+                                    need=("flash_attention_lse", "ssm_scan"),
+                                    after_fp32=rounding_sweep((4, 8, 16,
+                                                               32))))
+            free_device()
+            runs.append(decode_phase(device, "hymba-1.5b",
+                                     need=("decode_attention",
+                                           "flash_attention_lse",
+                                           "ssm_scan")))
+    if "ssm" in phases:
+        with phase("ssm"):
+            free_device()
+            sweep = rounding_sweep((2, 4, 8, 16, 32))
+
+            def rwkv_checks(cfg, params):
+                sweep(cfg, params)
+                ssm_steps_check(cfg, params)
+            runs.append(serve_phase(device, "rwkv6-7b", seed=3, exact=True,
+                                    need=("wkv6_scan",),
+                                    after_fp32=rwkv_checks))
     if "moe" in phases:
-        print("== moe")
-        free_device()
-        runs.extend(moe_phase(device))
+        with phase("moe"):
+            free_device()
+            runs.extend(moe_phase(device))
     if "multimodal" in phases:
-        print("== multimodal")
-        free_device()
-        runs.extend(multimodal_phase(device))
+        with phase("multimodal"):
+            free_device()
+            runs.extend(multimodal_phase(device))
     if "train" in phases:
-        print("== train")
-        free_device()
-        runs.extend(train_phase(device))
+        with phase("train"):
+            free_device()
+            runs.extend(train_phase(device))
+    launch_worst = {}
+    if "launch" in phases:
+        with phase("launch"):
+            free_device()
+            launch_runs, launch_worst = launch_phase(device)
+            runs.extend(launch_runs)
+    if "examples" in phases:
+        with phase("examples"):
+            free_device()
+            runs.extend(examples_phase(device))
     if phases != PHASES:
         print(f"== partial run ({', '.join(phases)}) done in "
               f"{time.perf_counter() - t_start:.1f} s: no record")
@@ -3191,7 +3718,10 @@ def main() -> int:
           f"serve, hybrid decode, ssm serve, olmoe serve, olmoe decode, "
           f"llama4 serve, whisper decode, whisper serve, vision decode, "
           f"vision serve, whisper fp32 train, whisper bf16 train, fp32 "
-          f"train, bf16 train): {runs}")
+          f"train, bf16 train, launch prefill_32k, decode_32k, long_500k, "
+          f"train_4k, then each example run): {runs}")
+    for name, errs in launch_worst.items():
+        worst[name].update(errs)
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk
     for name, m in (("ssm_scan", ss), ("wkv6_scan", wk)):

@@ -15,7 +15,8 @@ bfloat16 tensor that TMA cannot read (a base not 16-byte aligned, or a
 stride that is not a positive multiple of 16 bytes) raises
 ``ValueError``.
 
-A tensor on the CPU goes to the plain version beside each wrapper
+A tensor on the CPU (or the meta device: a shape pass, see
+``launch/dryrun.py``) goes to the plain version beside each wrapper
 (:func:`flash_attention_plain`, :func:`flash_attention_lse_plain`); a
 CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches per wrapper so a run can show its main path went through them.
@@ -217,8 +218,10 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, seg_ids: Optional[Tensor],
 
 def _on_cpu(q: Tensor, what: str = "attention") -> bool:
     """True for a CPU tensor (the plain version runs), False for a CUDA
-    one (the kernel runs); raises for any other device."""
-    if q.device.type == "cpu":
+    one (the kernel runs); raises for any other device. A meta tensor
+    takes the plain version too: it computes no values, so that is the
+    shape pass its caller asked for (``launch/dryrun.py``)."""
+    if q.device.type in ("cpu", "meta"):
         return True
     if q.device.type != "cuda":
         raise ValueError(f"no {what} kernel for device {q.device}")

@@ -19,18 +19,31 @@ device, as in the JAX package (no Pallas kernel there).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
 from repro_torch.kernels.ref import LOG_DECAY_MIN, wkv6_log_decay
 from repro_torch.kernels.ssm_scan import ssm_scan
 from repro_torch.kernels.wkv6_scan import wkv6_scan
 
 Tensor = torch.Tensor
+
+
+def kernel_head_dim(cfg, device):
+    """``cfg`` with its head_dim raised to the least the attention
+    kernels take where ``device`` is a card and they do not take it (a
+    smoke config's 16); elsewhere ``cfg`` as it is."""
+    if device.type != "cuda" or cfg.head_dim_ in HEAD_DIMS:
+        return cfg
+    hd = min(d for d in HEAD_DIMS if d >= cfg.head_dim_)
+    print(f"{cfg.name}: head_dim {cfg.head_dim_} -> {hd} on {device} (the "
+          f"attention kernels take {HEAD_DIMS})")
+    return dataclasses.replace(cfg, head_dim=hd)
 
 
 def attention(q: Tensor, k: Tensor, v: Tensor, *,

@@ -77,11 +77,18 @@ def _route(p: dict, cfg: ModelConfig, xf: Tensor):
     return gates, eidx, probs
 
 
+def _counts(idx: Tensor, n: int) -> Tensor:
+    """``torch.bincount(idx, minlength=n)`` for ``idx`` in [0, n), by a
+    scatter-add, which the meta device also runs (bincount has no meta
+    kernel, ``launch/dryrun.py``); integer sums, so exactly equal."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device) \
+        .scatter_add_(0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
+
+
 def _aux_loss(probs: Tensor, eidx: Tensor, n_experts: int) -> Tensor:
     """Switch-style load-balance loss: E * sum_e f_e * P_e."""
     pe = probs.mean(dim=0)
-    fe = torch.bincount(eidx.reshape(-1), minlength=n_experts).float() \
-        / probs.shape[0]
+    fe = _counts(eidx.reshape(-1), n_experts).float() / probs.shape[0]
     return n_experts * torch.sum(fe * pe)
 
 
@@ -124,7 +131,7 @@ def dispatch(cfg: ModelConfig, eidx: Tensor):
     flat_e = eidx.reshape(-1)
     order = torch.sort(flat_e, stable=True).indices
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts              # exclusive
     rank = torch.arange(flat_e.shape[0], device=eidx.device) - starts[se]
     keep = rank < cap

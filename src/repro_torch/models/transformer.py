@@ -132,15 +132,27 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, lead: tuple, *,
     return blocks
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device: the initialisers
+    place their tensors on ``gen.device``, and ``torch.Generator`` has no
+    meta device. Draws on meta tensors compute nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``
-    (None = the card), in the JAX package's layout: block weights are
+    (None = the card; "meta" gives the shapes and dtypes, allocating
+    nothing), in the JAX package's layout: block weights are
     stacked along a leading layer axis of length ``cfg.n_layers``; a vlm
     model's self blocks along two, (superblock G, layer E), beside its G
     ``cross_blocks``; an audio model adds ``enc_blocks`` and
     ``enc_norm``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = _MetaGenerator() if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(int(seed))
     dt = torch_dtype(cfg.dtype)
     p: dict = {
         "embed": nn.embed_init(gen, cfg.vocab_size, cfg.d_model, dt),

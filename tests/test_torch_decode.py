@@ -167,11 +167,20 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
 
 
 def test_wrapper_refuses_other_devices():
+    """A device that is neither the CPU nor a card raises; meta tensors
+    (a shape pass) take the plain version and launch nothing."""
+    class OnDevice:
+        device = torch.device("xpu")
+    x = OnDevice()
+    with pytest.raises(ValueError, match="no attention kernel"):
+        tda.decode_attention(x, x, x, x, x)
     q = torch.empty((1, 1, 2, 32), device="meta")
     kv = torch.empty((1, 8, 1, 32), device="meta")
     pos = torch.empty((1,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no attention kernel"):
-        tda.decode_attention(q, kv, kv, pos, pos[:, None].expand(1, 8))
+    before = dict(tda.LAUNCHES)
+    o = tda.decode_attention(q, kv, kv, pos, pos[:, None].expand(1, 8))
+    assert tda.LAUNCHES == before
+    assert o.device.type == "meta" and o.shape == q.shape
 
 
 def _bad_decode_inputs():

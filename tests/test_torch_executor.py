@@ -326,12 +326,22 @@ def test_inprocess_and_socket_transports_carry_tensors():
 
 # -------------------------------------------------------- import boundary
 
+EXAMPLES = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                        "examples"))
+
+
 def test_port_imports_neither_jax_nor_repro():
+    """Every module of the port and every example twin (run as a module
+    that is not ``__main__``: its imports only)."""
     code = (
-        "import pkgutil, sys, importlib, repro_torch\n"
+        "import glob, pkgutil, runpy, sys, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"twins = sorted(glob.glob({EXAMPLES!r} + '/*_torch.py'))\n"
+        "assert len(twins) == 6, twins\n"
+        "for p in twins:\n"
+        "    runpy.run_path(p, run_name='twin')\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro']\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
@@ -340,7 +350,11 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.serving.controller', 'repro_torch.serving.remote', "
         "'repro_torch.serving.fleet', 'repro_torch.launch.serve', "
         "'repro_torch.core.baselines', 'repro_torch.core.measured', "
-        "'repro_torch.models.moe')))\n")
+        "'repro_torch.models.moe', 'repro_torch.launch.dryrun', "
+        "'repro_torch.launch.specs', 'repro_torch.launch.roofline', "
+        "'repro_torch.launch.report', 'repro_torch.launch.mesh', "
+        "'repro_torch.distributed.sharding', "
+        "'repro_torch.distributed.actspec')))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
@@ -348,4 +362,5 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(n) >= 65, out.stdout
     assert bad == "[]", bad
     assert runtime == "True", "the server runtime, fleet, remote " \
-        "workers, serving launcher, baselines or moe were not imported"
+        "workers, serving launcher, baselines, moe, launch tools or " \
+        "sharding rules were not imported"

@@ -914,3 +914,80 @@ def test_build_lock_compiles_each_source_once_across_processes(
     assert built == [[], ["tiny"]]
     (lib,) = out_dir.glob("tiny-*.so")
     assert ctypes.CDLL(str(lib)).tiny_entry() == 7
+
+
+# ---------------------------------------------------------------------------
+# the workload shapes at full width (launch/specs.py): 32,768 tokens
+# ---------------------------------------------------------------------------
+
+def _assert_scaled_close(got, want):
+    """bf16's tolerance with ``atol`` scaled to max |want|: over 32,768
+    keys |o| is about 0.01, below a fixed atol of 2e-2. The same limits
+    refuse an all-zero output and ``want`` with its heads (dim 2) rolled
+    by one."""
+    atol, rtol = TOL[torch.bfloat16]
+    atol *= want.float().abs().max().item()
+    for bad in (torch.zeros_like(want), want.roll(1, 2)):
+        assert not torch.allclose(bad.float(), want.float(), atol=atol,
+                                  rtol=rtol)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_prefill_kernel_at_32k_tokens_matches_plain_last_rows(cuda):
+    """Row 2 at qwen3-1.7b's prefill_32k width (Sq = Sk = 32,768, 16
+    heads of 128 over 8 kv, bf16): the last 512 query rows of o and lse
+    against the plain version over those rows and every key, o at a
+    tolerance scaled to its size."""
+    from repro_torch.kernels import ref
+    B, S, H, KV, hd, n = 1, 32768, 16, 8, 128, 512
+    q, k, v, _ = _inputs(cuda, torch.bfloat16, B, S, S, H, KV, hd, seed=7)
+    o, lse = fa.flash_attention_lse(q, k, v)
+    ar = torch.arange(S, dtype=torch.int32, device=cuda)[None]
+    want_o, want_lse = ref.ref_attention(
+        q[:, S - n:], k, v, q_pos=ar[:, S - n:], kv_pos=ar, causal=True,
+        return_lse=True)
+    torch.cuda.synchronize()
+    _assert_scaled_close(o[:, S - n:], want_o)
+    torch.testing.assert_close(lse[:, :, S - n:], want_lse, atol=1e-4,
+                               rtol=0.0)
+
+
+def test_decode_kernel_at_32k_slots_matches_plain(cuda):
+    """Row 3 against a 32,768-slot cache, every slot valid (qwen3's
+    decode_32k at batch 4, bf16), and the same cache as a ring past the
+    window with -1 holes, at a tolerance scaled to the output's size."""
+    B, Sk, H, KV, hd = 4, 32768, 16, 8, 128
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((B, 1, H, hd), generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, Sk, KV, hd), generator=g)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    q_pos = torch.full((B,), Sk - 1, dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(Sk, dtype=torch.int32,
+                          device=cuda)[None].expand(B, Sk).contiguous()
+    got = da.decode_attention(q, k, v, q_pos, kv_pos)
+    want = da.decode_attention_plain(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    _assert_scaled_close(got, want)
+    ring = kv_pos + 40000                  # positions 40000 on, -1 holes
+    ring[:, ::7] = -1
+    q_pos = q_pos + 40000
+    got = da.decode_attention(q, k, v, q_pos, ring, window=20000)
+    want = da.decode_attention_plain(q, k, v, q_pos, ring, window=20000)
+    torch.cuda.synchronize()
+    _assert_scaled_close(got, want)
+
+
+def test_dryrun_on_the_card_machine(cuda):
+    """launch/dryrun.py runs on meta wherever the card is: one combo at
+    one H100 and at the 16x16 mesh."""
+    from repro_torch.launch import dryrun
+    recs = {mesh: dryrun.dryrun_one("qwen3-1.7b", "decode_32k", mesh=mesh,
+                                    batch=4, verbose=False)
+            for mesh in ("1xH100", "16x16")}
+    for rec in recs.values():
+        assert rec["ok"], rec.get("error")
+        assert rec["collectives"] is None and rec["roofline"]["flops"] > 0
+    one = recs["1xH100"]["memory"]["argument_bytes"]
+    assert recs["16x16"]["memory"]["argument_bytes"] < one
+    assert recs["1xH100"]["fits_80gb"] and one > 15e9     # the 15 GB cache

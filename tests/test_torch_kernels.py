@@ -222,10 +222,30 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     _close(o2, o.numpy())
 
 
+class _OnDevice:
+    """Stands in for a tensor on a device that is neither the CPU, the
+    card nor meta (the wrappers read only its device before refusing)."""
+
+    def __init__(self, device: str):
+        self.device = torch.device(device)
+
+
 def test_wrapper_refuses_other_devices():
-    q = torch.empty((1, 8, 2, 32), device="meta")
+    """A device that is neither the CPU nor a card raises; a meta tensor
+    (a shape pass: ``launch/dryrun.py``) takes the plain version, which
+    computes shapes only, and launches nothing."""
+    x = _OnDevice("xpu")
     with pytest.raises(ValueError, match="no attention kernel"):
-        tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+        tfa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="no attention kernel"):
+        tfa.flash_attention_lse(x, x, x)
+    q = torch.empty((1, 8, 2, 32), device="meta")
+    before = dict(tfa.LAUNCHES)
+    o = tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    o2, lse = tfa.flash_attention_lse(q, q[:, :, :1], q[:, :, :1])
+    assert tfa.LAUNCHES == before
+    assert o.device.type == o2.device.type == lse.device.type == "meta"
+    assert o.shape == o2.shape == q.shape and lse.shape == (1, 2, 8)
 
 
 def _bad_inputs():

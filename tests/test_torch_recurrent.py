@@ -249,12 +249,25 @@ def test_cpu_tensors_take_the_plain_versions_uncounted():
 
 
 def test_scan_wrappers_refuse_other_devices():
-    x = torch.empty((1, 4, 2, 16), device="meta")
+    """A device that is neither the CPU nor a card raises; meta tensors
+    (a shape pass) take the plain version and launch nothing."""
+    class OnDevice:
+        device = torch.device("xpu")
+    x = OnDevice()
     with pytest.raises(ValueError, match="no ssm_scan kernel"):
-        tss.ssm_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, 0, :8],
-                     x[:, :, 0, :8], x[:, :, :, :8])
+        tss.ssm_scan(x, x, x, x, x, x)
     with pytest.raises(ValueError, match="no wkv6_scan kernel"):
-        twk.wkv6_scan(x, x, x, x, x[0, 0], x[:, :2, :, :].transpose(1, 2))
+        twk.wkv6_scan(x, x, x, x, x, x)
+    sargs = [t.to("meta") for t in _t(*_ssm_inputs(1, 1, 70, 2, 16, 8))]
+    wargs = [t.to("meta") for t in _t(*_wkv_inputs(1, 1, 70, 2, 16))]
+    before = {**tss.LAUNCHES, **twk.LAUNCHES}
+    y, h = tss.ssm_scan(*sargs)
+    o, s = twk.wkv6_scan(*wargs)
+    assert {**tss.LAUNCHES, **twk.LAUNCHES} == before
+    for got, like in ((y, sargs[0]), (h, sargs[5]), (o, wargs[0]),
+                      (s, wargs[5])):
+        assert got.device.type == "meta"
+        assert got.shape == like.shape
 
 
 def _bad_ssm():
