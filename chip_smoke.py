@@ -37,7 +37,9 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    40, GQA groups 1 and 4, a prime S, Sq != Sk non-causal, rows that see
    no kv, hymba's GQA 5 with window 1024 at S = 1100, fused-QKV slices,
    whisper's encoder and cross-attention, vision's cross-attention),
-   in float32 (scalar bodies) and bfloat16 (tensor-core bodies).
+   in float32 (scalar bodies) and bfloat16 (tensor-core bodies); bf16's
+   atol 2e-2 scaled by min(1, max |want|) (``check_kernel``), and an
+   all-zero output must fail each check.
    timing  — the kernel, its plain version and a PyTorch library call
    (where one exists) at the main-path shapes with CUDA events (the
    library's attention backward under the profiler), the forward with
@@ -142,7 +144,22 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    kernels inside ``moe_forward`` as their own group. Then
    llama4-scout (published widths, 2 of 48 layers: top 1 plus a shared
    expert, GQA 5) through the block check and both dispatches' waves.
-10. multimodal — whisper-base at full width (6 encoder and 6 decoder
+10. ep      — olmoe-1b-7b at full width (16 layers, 64 experts) in
+   bfloat16 through the expert-parallel dispatch over 4 gloo ranks
+   sharing the card (``distributed/ranks.py``; each rank builds the
+   whole model in turn, keeps its 16 experts of every layer and frees
+   the rest): the forward of a 2 x 512 prompt batch on every rank,
+   rank 0's logits held against the one-process grouped forward with
+   the scaled bf16 check (``check_scaled``); each combine's
+   ``all_reduce`` (bytes, CUDA-event ms, host ms, per layer and rank;
+   gloo sums through host memory) and the EP forward's wall beside the
+   grouped one's; then float32 at 2 of 16 layers, on each rank against
+   its own grouped run with every expert: the logits (atol 5e-5, rtol
+   1e-3), ``lm_loss`` and the gradients of the router, the embedding
+   and the rank's expert slices (relative L2 within 1e-3). A rank that
+   fails or outlives its timeout fails the phase. Each rank's launches
+   come back to this process.
+11. multimodal — whisper-base at full width (6 encoder and 6 decoder
    layers, 1500 frames), then llama-3.2-vision-90b at its published widths
    cut to 2 of its 20 superblocks (10 layers, 10.7B parameters), float32
    with TF32 off: the serve phase's path, each request carrying its stub
@@ -160,7 +177,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    encoder's included, against the plain attention's, one counted AdamW
    step, and counted, timed bf16 steps (rows 2, 4 and 5 launching
    exactly once per attention and recompute).
-11. train  — full-width qwen3-1.7b (28 layers, random weights) on the
+12. train  — full-width qwen3-1.7b (28 layers, random weights) on the
    ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
    off: the loss and every gradient leaf through the kernels against
    autograd of the plain attention (``ops.attention`` swapped here
@@ -173,7 +190,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    (worst leaf's relative L2 within ``BF16_GRAD_REL_L2``), and steps
    launching the forward, dq and dkv exactly as the float32 steps do,
    timed, and one profiled.
-12. launch — qwen3-1.7b at its published widths (28 layers, bf16,
+13. launch — qwen3-1.7b at its published widths (28 layers, bf16,
    random seeded weights) through ``launch.specs.entry_fn`` at each
    workload shape with only the batch cut to fit one H100 80GB (each cut
    printed): ``prefill`` of 32,768 tokens (B 32 -> 1), ``decode_step``
@@ -193,7 +210,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    once (meta device: one core each, no device work), after the timed
    entries; its report table and each combo's ``fits_80gb`` are
    printed.
-13. examples — each example twin (``examples/*_torch.py``) in this
+14. examples — each example twin (``examples/*_torch.py``) in this
    process through ``runpy``: the realign demo, the quickstart (each
    served request within the serving tolerance of the forward), the
    serving driver, online serving in the simulator, in in-process and
@@ -203,7 +220,9 @@ Each phase prints its seconds. Each model is freed before the next one
 loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model
-(both dispatches' waves for the moe models), the multimodal phase's
+(both dispatches' waves for the moe models), the ep phase's bf16
+forward and fp32 loss with its backward on every rank, the multimodal
+phase's
 float32 waves and decode streams and its whisper train steps,
 the float32 server loop and its disaggregated streams, the float32
 remote executor's waves and fleet loop (launches in the workers and in
@@ -301,6 +320,22 @@ def check_close(name, got, want, atol, rtol):
     return e
 
 
+def check_kernel(name, got, want, dname):
+    """A kernel's output against its plain version's: float32 at
+    ``TOL["float32"]``; bfloat16 at ``TOL["bfloat16"]`` with ``atol``
+    scaled by min(1, max |want|), never looser than the fixed 2e-2, which
+    holds nothing where the output is far below 1 (attention over many
+    keys, gradients). The same limits must refuse an all-zero output."""
+    import torch
+    atol, rtol = TOL[dname]
+    if dname == "bfloat16":
+        atol *= min(1.0, want.float().abs().max().item())
+    if torch.allclose(torch.zeros_like(want, dtype=torch.float32),
+                      want.float(), atol=atol, rtol=rtol):
+        fail(f"{name}: the check would pass an all-zero output")
+    return check_close(name, got, want, atol, rtol)
+
+
 def check_scaled(name, got, want, tol, roll_dim):
     """``check_close`` with ``atol`` = ``tol[0]`` times max |want|: at a
     long context the outputs (and gradients) are far below 1, where a
@@ -394,14 +429,14 @@ def kernel_phase(device) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
     print("  tolerances: float32 atol 2e-5 rtol 1e-3 (fp32 accumulation in "
-          "both, summation order only); bfloat16 atol 2e-2 rtol 1e-2 (both "
-          "round o, or dq, dk and dv, to bf16 from fp32 sums: one ulp is "
-          "2^-7 relative, 7.8e-3 near 1); lse atol 1e-4 (fp32 in both)")
+          "both, summation order only); bfloat16 atol 2e-2 x min(1, max "
+          "|want|) rtol 1e-2 (both round o, or dq, dk and dv, to bf16 from "
+          "fp32 sums: one ulp is 2^-7 relative, 7.8e-3 near 1); an all-zero "
+          "output must fail either; lse atol 1e-4 (fp32 in both)")
     worst = {"flash_attention": {}, "flash_attention_lse": {}}
     gen = torch.Generator().manual_seed(0)
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        atol, rtol = TOL[dname]
         for (label, B, Sq, Sk, H, KV, hd, causal, window, segs,
              fused) in CASES:
             q, k, v = attention_inputs(gen, dtype, device, B, Sq, Sk, H, KV,
@@ -413,14 +448,14 @@ def kernel_phase(device) -> dict:
             got = fa.flash_attention(q, k, v, seg, **kw)
             want = fa.flash_attention_plain(q, k, v, seg, **kw)
             torch.cuda.synchronize()
-            e = check_close(f"flash_attention {tag}", got, want, atol, rtol)
+            e = check_kernel(f"flash_attention {tag}", got, want, dname)
             worst["flash_attention"][(dname, label)] = e
             if seg is None:
                 o, lse = fa.flash_attention_lse(q, k, v, **kw)
                 o2, lse2 = fa.flash_attention_lse_plain(q, k, v, **kw)
                 torch.cuda.synchronize()
-                e = check_close(f"flash_attention_lse o {tag}", o, o2,
-                                atol, rtol)
+                e = check_kernel(f"flash_attention_lse o {tag}", o, o2,
+                                 dname)
                 check_close(f"flash_attention_lse lse {tag}", lse, lse2,
                             LSE_ATOL, 0.0)
                 worst["flash_attention_lse"][(dname, label)] = e
@@ -486,16 +521,15 @@ def decode_kernel_cases(device, gen) -> dict:
     worst = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        atol, rtol = TOL[dname]
         for label, B, Sk, H, KV, hd, q_pos, ring, window in DECODE_CASES:
             args = decode_inputs(gen, dtype, device, B, Sk, H, KV, hd,
                                  q_pos, ring)
             got = da.decode_attention(*args, window=window)
             want = da.decode_attention_plain(*args, window=window)
             torch.cuda.synchronize()
-            e = check_close(f"decode_attention {dname} {label} "
-                            f"{(B, Sk, H, KV, hd)} window {window}", got,
-                            want, atol, rtol)
+            e = check_kernel(f"decode_attention {dname} {label} "
+                             f"{(B, Sk, H, KV, hd)} window {window}", got,
+                             want, dname)
             worst[(dname, label)] = e
     return worst
 
@@ -552,7 +586,6 @@ def bwd_kernel_cases(device, gen) -> dict:
     worst = {"flash_attention_bwd_dq": {}, "flash_attention_bwd_dkv": {}}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        atol, rtol = TOL[dname]
         for (label, B, Sq, Sk, H, KV, hd, causal, window,
              fused) in BWD_CASES:
             args = bwd_inputs(gen, dtype, device, B, Sq, Sk, H, KV, hd,
@@ -562,9 +595,8 @@ def bwd_kernel_cases(device, gen) -> dict:
             want = fab.flash_attention_bwd_plain(*args, **kw)
             torch.cuda.synchronize()
             tag = f"{dname} {label} {(B, Sq, Sk, H, KV, hd)} {kw}"
-            e = [check_close(f"flash_attention_bwd {n} {tag}", g, w, atol,
-                             rtol) for n, g, w in zip(("dq", "dk", "dv"),
-                                                      got, want)]
+            e = [check_kernel(f"flash_attention_bwd {n} {tag}", g, w, dname)
+                 for n, g, w in zip(("dq", "dk", "dv"), got, want)]
             if not all(bool(torch.isfinite(g).all()) for g in got):
                 fail(f"flash_attention_bwd {tag}: a gradient is not finite")
             if not all(g.dtype == dtype for g in got):
@@ -662,7 +694,6 @@ def scan_kernel_cases(device, gen) -> dict:
     worst = {"ssm_scan": {}, "wkv6_scan": {}}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        atol, rtol = TOL[dname]
         for label, B, T, H, hd, N, dts in SSM_CASES:
             args = ssm_inputs(gen, dtype, device, B, T, H, hd, N, dts)
             y, h = ss.ssm_scan(*args)
@@ -670,8 +701,8 @@ def scan_kernel_cases(device, gen) -> dict:
             torch.cuda.synchronize()
             tag = f"{dname} {label} {(B, T, H, hd, N)} dt x{dts:g}"
             worst["ssm_scan"][(dname, label, T)] = max(
-                check_close(f"ssm_scan y {tag}", y, y2, atol, rtol),
-                check_close(f"ssm_scan state {tag}", h, h2, atol, rtol))
+                check_kernel(f"ssm_scan y {tag}", y, y2, dname),
+                check_kernel(f"ssm_scan state {tag}", h, h2, dname))
         for label, B, T, H, hd, w in WKV_CASES:
             args = wkv_inputs(gen, dtype, device, B, T, H, hd, w)
             o, st = wk.wkv6_scan(*args)
@@ -679,8 +710,8 @@ def scan_kernel_cases(device, gen) -> dict:
             torch.cuda.synchronize()
             tag = f"{dname} {label} {(B, T, H, hd)} w {w or 'random'}"
             worst["wkv6_scan"][(dname, label, T)] = max(
-                check_close(f"wkv6_scan o {tag}", o, o2, atol, rtol),
-                check_close(f"wkv6_scan state {tag}", st, st2, atol, rtol))
+                check_kernel(f"wkv6_scan o {tag}", o, o2, dname),
+                check_kernel(f"wkv6_scan state {tag}", st, st2, dname))
     return worst
 
 
@@ -1687,6 +1718,311 @@ def moe_phase(device) -> list:
 # llama4-scout's depth on the card: 2 of its 48 layers at the published
 # widths are 26 GB in float32 (its 107.8B parameters do not fit)
 MOE_LLAMA4_LAYERS = 2
+
+
+# ---------------------------------------------------------------------------
+# phase ep: expert-parallel olmoe over ranks sharing the card
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "olmoe-1b-7b"
+EP_RANKS = 4
+EP_BATCH, EP_SEQ = 2, 512
+EP_SEED = 11
+# the float32 check's depth: 2 of olmoe's 16 layers at full width
+EP_FP32_LAYERS = 2
+# every rank's join; the phase takes well under this
+EP_TIMEOUT_S = 400
+EP_DIR = os.path.join(HERE, "build", "ep")
+
+
+def ep_configs():
+    """(the bf16 model, the fp32 check's model): olmoe-1b-7b at its
+    published widths and depth with the expert-parallel dispatch, and
+    the same cut to ``EP_FP32_LAYERS`` layers in float32."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(EP_ARCH), dtype="bfloat16",
+                              moe_impl="expert_parallel")
+    return cfg, dataclasses.replace(cfg, dtype="float32",
+                                    n_layers=EP_FP32_LAYERS)
+
+
+def ep_tokens(cfg, seed):
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    return (torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+        EP_BATCH, EP_SEQ)).astype(np.int32)) for _ in range(2))
+
+
+def ep_sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed_all_reduce(device, log: list):
+    """Append (bytes, dtype, device ms, host ms) of each
+    ``torch.distributed.all_reduce`` in the block to ``log`` (device ms
+    by CUDA events around the call on a card, None on the CPU)."""
+    import torch
+    import torch.distributed as dist
+    inner = dist.all_reduce
+    marks = []
+
+    def timed(t, *a, **kw):
+        ev = None
+        if device.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        h = time.perf_counter()
+        out = inner(t, *a, **kw)
+        h = time.perf_counter() - h
+        if ev is not None:
+            ev[1].record()
+        marks.append((t.numel() * t.element_size(), str(t.dtype), ev,
+                      h * 1e3))
+        return out
+    dist.all_reduce = timed
+    try:
+        yield
+    finally:
+        dist.all_reduce = inner
+        ep_sync(device)
+        log.extend((b, dt, ev[0].elapsed_time(ev[1]) if ev else None, h)
+                   for b, dt, ev, h in marks)
+
+
+def ep_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
+    """One of ``n`` ranks sharing the card (``ep_phase``): olmoe with
+    only its ``1/n`` of every layer's experts, under ``moe_mesh`` on
+    ``to_device_mesh(make_host_mesh(model=n))``. The bf16 model is built
+    one rank at a time (a whole model is built, then cut to the rank's
+    experts and the rest freed, before the next rank builds); its
+    forward of the prompt batch runs twice (the first counted: the main
+    path; the second timed, each combine's ``all_reduce`` by CUDA
+    events); rank 0 saves the logits. Then the fp32 check at
+    ``cfg32``'s depth: ``lm_loss`` and its gradients with ``grouped``
+    and the whole model, then through the expert-parallel path; the
+    logits, the loss, the router's and embedding's gradients and the
+    rank's expert slice of each layer held against grouped's. Writes
+    ``rank{rank}.json``: launches, combine log, walls, peak memory."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import actspec
+    from repro_torch.distributed.sharding import to_device_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import forward, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.training.train_step import lm_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dm = to_device_mesh(make_host_mesh(model=n), device_type)
+    rep = {"rank": rank}
+
+    def own_experts(params):
+        blocks = params["blocks"]
+        params["blocks"] = dict(blocks, moe=moe_mod.shard_experts(
+            blocks["moe"], rank, n))
+        del blocks
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return params
+
+    toks, labels = (t.to(device) for t in ep_tokens(cfg, EP_SEED))
+    t0 = time.perf_counter()
+    for turn in range(n):
+        if turn == rank:
+            params = own_experts(init_params(cfg, seed=EP_SEED,
+                                             device=device))
+            ep_sync(device)
+        dist.barrier()
+    rep["init_s"] = time.perf_counter() - t0
+    rep["expert_bytes"] = sum(
+        v.numel() * v.element_size() for k, v in
+        params["blocks"]["moe"].items() if k in moe_mod.EXPERT_KEYS)
+    rep["param_bytes"] = sum(
+        v.numel() * v.element_size() for v in named_leaves(params).values())
+    with torch.no_grad(), actspec.moe_mesh(dm):
+        reset_launches()
+        logits, _ = forward(params, cfg, toks)
+        ep_sync(device)
+        rep["launches_bf16"] = read_launches()
+        dist.barrier()
+        log = []
+        with timed_all_reduce(device, log):
+            t = time.perf_counter()
+            logits2, _ = forward(params, cfg, toks)
+            ep_sync(device)
+            rep["wall_s"] = time.perf_counter() - t
+        rep["combine"] = log
+        if not torch.equal(logits, logits2):
+            raise RuntimeError(f"rank {rank}: two forwards of one batch "
+                               "differ")
+    if rank == 0:
+        torch.save(logits.cpu(), os.path.join(out_dir, "logits.pt"))
+    if device.type == "cuda":
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    del params, logits, logits2
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # float32 at cfg32's depth: grouped with the whole model first
+    want = {}
+    grouped = dataclasses.replace(cfg32, moe_impl="grouped")
+    params = init_params(cfg32, seed=EP_SEED, device=device)
+    with torch.no_grad():
+        want["logits"] = forward(params, grouped, toks)[0]
+    for v in named_leaves(params).values():
+        v.requires_grad_(True)
+    loss, _ = lm_loss(params, grouped, toks, labels)
+    loss.backward()
+    want["loss"] = float(loss.detach())
+    m = cfg32.moe.n_experts // n
+    for k, v in named_leaves(params).items():
+        if k.startswith("blocks/moe/w_"):
+            want[k] = v.grad[:, rank * m:(rank + 1) * m].clone()
+        elif k in ("embed", "blocks/moe/router"):
+            want[k] = v.grad
+    del params, loss, v
+    gc.collect()
+    params = own_experts(init_params(cfg32, seed=EP_SEED, device=device))
+    dist.barrier()
+    with actspec.moe_mesh(dm):
+        with torch.no_grad():
+            got = forward(params, cfg32, toks)[0]
+        for v in named_leaves(params).values():
+            v.requires_grad_(True)
+        reset_launches()
+        loss, _ = lm_loss(params, cfg32, toks, labels)
+        loss.backward()
+        ep_sync(device)
+        rep["launches_fp32"] = read_launches()
+    if not torch.allclose(got, want["logits"], atol=SERVE_ATOL,
+                          rtol=SERVE_RTOL):
+        raise RuntimeError(f"rank {rank}: fp32 logits differ from "
+                           f"grouped's: max |diff| {err(got, want['logits'])}")
+    rep["fp32_logits_max_abs"] = err(got, want["logits"])[0]
+    rep["fp32_loss"] = (float(loss.detach()), want["loss"])
+    if abs(rep["fp32_loss"][0] - want["loss"]) > LOSS_RTOL * abs(want["loss"]):
+        raise RuntimeError(f"rank {rank}: loss {rep['fp32_loss'][0]} vs "
+                           f"grouped's {want['loss']}")
+    grads = {k: v.grad for k, v in named_leaves(params).items()
+             if k in want}
+    rel = {k: rel_l2(g, want[k]) for k, g in grads.items()}
+    rep["fp32_grad_rel_l2"] = rel
+    if len(rel) != 5 or max(rel.values()) > GRAD_REL_L2:
+        raise RuntimeError(f"rank {rank}: gradients against grouped's "
+                           f"(relative L2, bound {GRAD_REL_L2:g}): {rel}")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+
+
+def ep_phase(device, *, need=("flash_attention_lse",)) -> list:
+    """olmoe-1b-7b at full width in bf16 through the expert-parallel
+    dispatch over ``EP_RANKS`` gloo ranks sharing the card, held against
+    the one-process grouped forward (scaled bf16 check); then the fp32
+    logits, loss and gradients at ``EP_FP32_LAYERS`` layers, on each
+    rank against its own grouped run (``ep_rank``). Returns the launch
+    counts of the two main paths, summed over the ranks: the bf16
+    forward and the fp32 loss with its backward."""
+    import shutil
+
+    import torch
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.models import forward, init_params
+    cfg, cfg32 = ep_configs()
+    e = cfg.moe
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.vocab_size} vocab{moe_text(cfg)}; {EP_RANKS} gloo ranks on "
+          f"one card, {e.n_experts // EP_RANKS} experts each; prompts "
+          f"{EP_BATCH} x {EP_SEQ}")
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    os.makedirs(EP_DIR)
+    toks, _ = (t.to(device) for t in ep_tokens(cfg, EP_SEED))
+    grouped = dataclasses.replace(cfg, moe_impl="grouped")
+    t0 = time.perf_counter()
+    params = init_params(grouped, seed=EP_SEED, device=device)
+    ep_sync(device)
+    print(f"  grouped reference: init {time.perf_counter() - t0:.2f} s")
+    with torch.no_grad():
+        want, _ = forward(params, grouped, toks)
+        ep_sync(device)
+        t0 = time.perf_counter()
+        forward(params, grouped, toks)
+        ep_sync(device)
+        grouped_wall = time.perf_counter() - t0
+    want = want.cpu()
+    del params
+    free_device()
+    try:
+        wall = spawn_ranks(ep_rank, EP_RANKS, cfg, cfg32, device.type,
+                           EP_DIR, timeout=EP_TIMEOUT_S)
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException,
+            TimeoutError) as e:
+        fail(f"ep: a rank failed: {e}")
+    reps = []
+    for r in range(EP_RANKS):
+        with open(os.path.join(EP_DIR, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    print(f"  {EP_RANKS} ranks ran in {wall:.1f} s (spawn, imports and "
+          "the builds one rank at a time included)")
+    for rep in reps:
+        print(f"  rank {rep['rank']}: holds {rep['expert_bytes'] / 1e9:.2f} "
+              f"GB of experts, {rep['param_bytes'] / 1e9:.2f} GB of "
+              f"parameters, peak {rep.get('peak_bytes', 0) / 1e9:.2f} GB "
+              f"allocated; init {rep['init_s']:.2f} s (waits included); "
+              f"launches bf16 forward {rep['launches_bf16']}, fp32 loss and "
+              f"backward {rep['launches_fp32']}")
+    got = torch.load(os.path.join(EP_DIR, "logits.pt"))
+    check_scaled(f"ep bf16 logits {tuple(got.shape)} against grouped", got,
+                 want, TOL["bfloat16"], 1)
+    layers = [[] for _ in range(cfg.n_layers)]
+    for rep in reps:
+        if len(rep["combine"]) != cfg.n_layers:
+            fail(f"rank {rep['rank']}: {len(rep['combine'])} combines in a "
+                 f"forward of {cfg.n_layers} moe layers")
+        for i, c in enumerate(rep["combine"]):
+            layers[i].append(c)
+    for i, cs in enumerate(layers):
+        dev = [c[2] for c in cs]
+        print(f"  combine layer {i}: all_reduce of {cs[0][0]} B "
+              f"({cs[0][0] / 2**20:.2f} MiB {cs[0][1]}) per rank; device ms"
+              f" {'/'.join('-' if d is None else f'{d:.3f}' for d in dev)}, "
+              f"host ms {'/'.join(f'{c[3]:.3f}' for c in cs)} (ranks "
+              "0-3; gloo through host memory, not NVLink or NCCL)")
+    ep_wall = max(rep["wall_s"] for rep in reps)
+    print(f"  bf16 forward of {EP_BATCH} x {EP_SEQ}: expert-parallel over "
+          f"{EP_RANKS} ranks on one card {ep_wall * 1e3:.1f} ms (slowest "
+          f"rank), grouped in one process {grouped_wall * 1e3:.1f} ms "
+          f"({ep_wall / grouped_wall:.2f}x)")
+    if device.type == "cuda":
+        print(f"  ep figures on: {smi_line()}")
+    for rep in reps:
+        rel = rep["fp32_grad_rel_l2"]
+        print(f"  rank {rep['rank']} fp32 at {cfg32.n_layers} layers: "
+              f"logits max |diff| {rep['fp32_logits_max_abs']:.3e} (atol "
+              f"{SERVE_ATOL:g}, rtol {SERVE_RTOL:g}), loss "
+              f"{rep['fp32_loss'][0]:.6f} vs grouped "
+              f"{rep['fp32_loss'][1]:.6f}, gradients' relative L2 "
+              + ", ".join(f"{k} {v:.2e}" for k, v in sorted(rel.items()))
+              + f" (bound {GRAD_REL_L2:g})")
+    runs = [{k: sum(rep[key].get(k, 0) for rep in reps)
+             for k in reps[0][key]}
+            for key in ("launches_bf16", "launches_fp32")]
+    for name in need:
+        if not all(rep["launches_bf16"].get(name, 0) for rep in reps):
+            fail(f"ep: {name} did not launch on every rank's forward")
+    return runs
 
 
 # layers of rwkv6-7b (of 32, full width) for the prefill + decode steps
@@ -3572,7 +3908,7 @@ def tensor_core_check(logs: dict) -> None:
 
 
 PHASES = ("kernels", "timing", "serve", "decode", "server", "remote",
-          "hybrid", "ssm", "moe", "multimodal", "train", "launch",
+          "hybrid", "ssm", "moe", "ep", "multimodal", "train", "launch",
           "examples")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
@@ -3691,6 +4027,10 @@ def main() -> int:
         with phase("moe"):
             free_device()
             runs.extend(moe_phase(device))
+    if "ep" in phases:
+        with phase("ep"):
+            free_device()
+            runs.extend(ep_phase(device))
     if "multimodal" in phases:
         with phase("multimodal"):
             free_device()
@@ -3716,10 +4056,11 @@ def main() -> int:
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, server, remote, hybrid "
           f"serve, hybrid decode, ssm serve, olmoe serve, olmoe decode, "
-          f"llama4 serve, whisper decode, whisper serve, vision decode, "
-          f"vision serve, whisper fp32 train, whisper bf16 train, fp32 "
-          f"train, bf16 train, launch prefill_32k, decode_32k, long_500k, "
-          f"train_4k, then each example run): {runs}")
+          f"llama4 serve, ep bf16 forward, ep fp32 loss, whisper decode, "
+          f"whisper serve, vision decode, vision serve, whisper fp32 "
+          f"train, whisper bf16 train, fp32 train, bf16 train, launch "
+          f"prefill_32k, decode_32k, long_500k, train_4k, then each "
+          f"example run): {runs}")
     for name, errs in launch_worst.items():
         worst[name].update(errs)
     from repro_torch.kernels import ssm_scan as ss

@@ -10,8 +10,18 @@ tensor as it is and ``redistribute`` a DTensor onto the spec.
 A spec is a tuple with an entry per tensor dim (``distributed/sharding.py``):
 None is whole, an axis name or a tuple of names splits the dim over
 them, and :data:`UNCONSTRAINED` leaves the dim as the tensor has it
-(``P.UNCONSTRAINED`` in JAX). The port's models do not call these hooks:
-on one card they would do nothing.
+(``P.UNCONSTRAINED`` in JAX). The port's models call them where the JAX
+models do: :func:`constrain_batch` on q, k and v in
+``models/attention.py::attn_forward``, :func:`constrain` on the residual
+after every block of ``transformer.py``'s ``stack_forward`` and
+``vlm_stack_forward`` and after every layer of ``decode.py::prefill``
+(its non-vlm stacks, as JAX's). Their tensors are plain on one card and
+under expert parallelism (tokens whole on every rank), so there every
+hook returns the object it was given.
+
+The MoE mesh hook (:func:`moe_mesh`) takes a ``DeviceMesh`` with a
+``model`` dim, over which ``models/moe.py``'s ``expert_parallel``
+dispatch shards the experts.
 """
 from __future__ import annotations
 
@@ -84,8 +94,25 @@ def constrain_batch(x: torch.Tensor) -> torch.Tensor:
                          + (UNCONSTRAINED,) * (x.ndim - 1))
 
 
+def captured():
+    """This thread's hooks (the residual spec and the MoE mesh), as a
+    context-manager factory: entering what it returns installs them on
+    whichever thread enters it. The hooks are thread-local, and autograd
+    runs a CUDA graph's backward, and so a checkpointed block's
+    recompute (``models/transformer.py``'s remat), on a device thread of
+    its own, where they are unset; the stacks enter this around every
+    block, so the recompute sees what the forward saw."""
+    spec, mesh = get_residual_spec(), get_moe_mesh()
+
+    @contextlib.contextmanager
+    def install():
+        with residual_spec(spec), moe_mesh(mesh):
+            yield
+    return install
+
+
 # ---------------------------------------------------------------------------
-# Mesh hook for expert-parallel layers
+# Mesh hook for expert-parallel layers (models/moe.py)
 # ---------------------------------------------------------------------------
 
 def set_moe_mesh(mesh) -> None:

@@ -13,7 +13,14 @@ dimension: None (whole), one mesh axis name, or a tuple of several
     of each matrix;
   * batch over ('pod', 'data') when divisible; long-context decode
     (batch 1) shards the KV-cache sequence over the batch axes instead;
-  * MoE expert weights sharded over ``model`` on the ffn dim.
+  * MoE expert weights sharded over ``model`` on the ffn dim (tensor
+    parallelism inside every expert). The expert-parallel alternative,
+    ``models/moe.py::moe_forward_expert_parallel`` (``moe_impl=
+    "expert_parallel"`` with a ``DeviceMesh`` installed by
+    ``distributed/actspec.py::moe_mesh``), instead gives each rank of
+    ``model`` E / n whole experts (``models/moe.py::shard_experts``) and
+    sums the ranks' outputs with one all-reduce a layer; these rules
+    describe the baseline layout only.
 
 The dry-run reads per-device bytes from these specs. To place tensors,
 :func:`to_device_mesh` and :func:`placements` turn a mesh and a spec into

@@ -21,7 +21,11 @@ under ``launch/roofline.py``'s counter:
     fit one card's 80 GB.
 
 Collective bytes need more than one card: every record has
-``"collectives": null`` (``launch/report.py`` prints ``-``).
+``"collectives": null`` (``launch/report.py`` prints ``-``). The ``opt``
+policy sets the moe models' non-decode entries to ``expert_parallel``,
+as the JAX package does; on meta no process group and no ``DeviceMesh``
+is installed, so those entries take ``grouped`` (``models/moe.py``),
+whose FLOPs are the expert-parallel path's summed over its ranks.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k

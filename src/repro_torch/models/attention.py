@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import actspec
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, rms_head_norm,
                                        rope_freqs, torch_dtype)
@@ -85,9 +86,10 @@ def attn_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
     return_kv: also return the (rope'd) k, v.
     """
     B, S, _ = x.shape
-    q = _project_q(p, cfg, x)
+    q = actspec.constrain_batch(_project_q(p, cfg, x))
     cross = kv_src is not None
     k, v = _project_kv(p, cfg, kv_src if cross else x)
+    k, v = actspec.constrain_batch(k), actspec.constrain_batch(v)
     if not cross and cfg.rope_theta > 0:
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import actspec
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
@@ -356,8 +357,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
         mem = encode_audio(params, cfg, extras["frames"]) \
             if cfg.family == "audio" else None
         for i in range(cfg.n_layers):
-            x = layer(_layer(blocks, i), {k: cache[k][i] for k in lkeys}, x,
-                      mem)
+            x = actspec.constrain(layer(_layer(blocks, i),
+                                        {k: cache[k][i] for k in lkeys}, x,
+                                        mem))
 
     # kv_pos: which global position occupies each cache slot
     if Sc >= S:                                            # plain cache

@@ -38,6 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import actspec
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
@@ -259,13 +260,16 @@ def stack_forward(blocks: dict, cfg: ModelConfig, x: Tensor, *,
     the moe aux loss summed over the layers: a float32 scalar, 0 for the
     families without a router)."""
     ckpt = _remat_kwargs(remat)
+    hooks = actspec.captured()
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in _layers(blocks):
         def block(h, p_l=p_l):
-            return block_forward(p_l, cfg, h, window=window, causal=causal,
-                                 memory=memory, kind=kind, seg_ids=seg_ids,
-                                 positions=positions)
+            with hooks():
+                return block_forward(p_l, cfg, h, window=window,
+                                     causal=causal, memory=memory, kind=kind,
+                                     seg_ids=seg_ids, positions=positions)
         x, aux = block(x) if ckpt is None else checkpoint(block, x, **ckpt)
+        x = actspec.constrain(x)
         if aux is not None:
             total = total + aux
     return x, total
@@ -278,15 +282,18 @@ def vlm_stack_forward(params: dict, cfg: ModelConfig, x: Tensor,
     block over the image embeddings ``img`` (B, T, d), the superblock
     under ``remat``. Returns (x, a float32 zero: no router)."""
     ckpt = _remat_kwargs(remat)
+    hooks = actspec.captured()
     selfs = _layers(params["blocks"])
     for p_self, p_cross in zip(selfs, _layers(params["cross_blocks"],
                                               len(selfs))):
         def superblock(h, p_self=p_self, p_cross=p_cross):
-            h, _ = stack_forward(p_self, cfg, h, window=window)
-            return block_forward(p_cross, cfg, h, memory=img,
-                                 kind="cross")[0]
+            with hooks():
+                h, _ = stack_forward(p_self, cfg, h, window=window)
+                return block_forward(p_cross, cfg, h, memory=img,
+                                     kind="cross")[0]
         x = superblock(x) if ckpt is None else \
             checkpoint(superblock, x, **ckpt)
+        x = actspec.constrain(x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -2,7 +2,8 @@
 PyTorch version on the card (attention forward and backward, decode
 attention and the two recurrent scans), the serving paths (one-shot and
 decode, dense and hybrid) and a training step launching the kernels,
-and the kernels without a backward refusing inputs that require grad.
+the kernels without a backward refusing inputs that require grad, and
+the expert-parallel MoE over two gloo ranks sharing the card.
 
 Marked ``gpu``; every test asks the ``cuda`` fixture for the card and
 skips where there is none, so every pytest worker collects the same
@@ -11,7 +12,10 @@ it: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (``--noconftest`` skips the JAX package's
 ``tests/conftest.py``). Tolerances: float32 ``atol=2e-5, rtol=1e-3``
 (summation order only); bfloat16 ``atol=2e-2, rtol=1e-2`` (both round
-the output to bf16: an ulp near 1 is 7.8e-3).
+the output to bf16: an ulp near 1 is 7.8e-3), where a kernel is held
+against its plain version with ``atol`` scaled by min(1, max |want|)
+(``_assert_kernel_close``: a fixed 2e-2 holds nothing where |o| is far
+below 1) and an all-zero output refused.
 """
 import numpy as np
 import pytest
@@ -26,6 +30,19 @@ from repro_torch.kernels import wkv6_scan as wk
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: (2e-5, 1e-3), torch.bfloat16: (2e-2, 1e-2)}
+
+
+def _assert_kernel_close(got, want, dtype):
+    """A kernel's output against its plain version's at ``TOL[dtype]``,
+    bf16's ``atol`` times min(1, max |want|) (never looser than 2e-2);
+    the same limits must refuse an all-zero output."""
+    atol, rtol = TOL[dtype]
+    if dtype == torch.bfloat16:
+        atol *= min(1.0, want.float().abs().max().item())
+    assert not torch.allclose(torch.zeros_like(want, dtype=torch.float32),
+                              want.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.fixture
@@ -106,18 +123,15 @@ def test_kernels_match_plain_versions(cuda, dtype, case):
     B, Sq, Sk, H, KV, hd, causal, window, segs, fused = case
     q, k, v, seg = _inputs(cuda, dtype, B, Sq, Sk, H, KV, hd, segs,
                            fused=fused)
-    atol, rtol = TOL[dtype]
     kw = dict(causal=causal, window=window)
     got = fa.flash_attention(q, k, v, seg, **kw)
     want = fa.flash_attention_plain(q, k, v, seg, **kw)
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    _assert_kernel_close(got, want, dtype)
     if seg is None:
         o, lse = fa.flash_attention_lse(q, k, v, **kw)
         o2, lse2 = fa.flash_attention_lse_plain(q, k, v, **kw)
-        torch.testing.assert_close(o.float(), o2.float(), atol=atol,
-                                   rtol=rtol)
+        _assert_kernel_close(o, o2, dtype)
         torch.testing.assert_close(lse, lse2, atol=1e-4, rtol=0)
 
 
@@ -243,12 +257,10 @@ DECODE_CASES = [  # B, Sk, H, KV, hd, q_pos, ring, window
 def test_decode_kernel_matches_plain_version(cuda, dtype, case):
     B, Sk, H, KV, hd, q_pos, ring, window = case
     q, k, v, qp, kp = _decode_case(cuda, dtype, B, Sk, H, KV, hd, q_pos, ring)
-    atol, rtol = TOL[dtype]
     got = da.decode_attention(q, k, v, qp, kp, window=window)
     want = da.decode_attention_plain(q, k, v, qp, kp, window=window)
     assert got.dtype == dtype and got.shape == q.shape
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    _assert_kernel_close(got, want, dtype)
 
 
 def test_decode_kernel_row_does_not_depend_on_batch_or_capacity(cuda):
@@ -437,13 +449,12 @@ WKV_CASES = [  # B, T, H, hd, w (None: random decays)
 def test_ssm_kernel_matches_plain_version(cuda, dtype, case):
     *shape, dt_scale = case
     args = _ssm_case(cuda, dtype, *shape, dt_scale=dt_scale)
-    atol, rtol = TOL[dtype]
     y, h = ss.ssm_scan(*args)
     y2, h2 = ss.ssm_scan_plain(*args)
     assert y.dtype == dtype and h.dtype == torch.float32
     assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
-    torch.testing.assert_close(y.float(), y2.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(h, h2, atol=atol, rtol=rtol)
+    _assert_kernel_close(y, y2, dtype)
+    _assert_kernel_close(h, h2, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -474,13 +485,12 @@ def test_ssm_kernel_row_does_not_depend_on_length_or_batch(cuda, dtype):
 def test_wkv6_kernel_matches_plain_version(cuda, dtype, case):
     *shape, w = case
     args = _wkv_case(cuda, dtype, *shape, w=w)
-    atol, rtol = TOL[dtype]
     o, s = wk.wkv6_scan(*args)
     o2, s2 = wk.wkv6_scan_plain(*args)
     assert o.dtype == dtype and s.dtype == torch.float32
     assert torch.isfinite(o.float()).all() and torch.isfinite(s).all()
-    torch.testing.assert_close(o.float(), o2.float(), atol=atol, rtol=rtol)
-    torch.testing.assert_close(s, s2, atol=atol, rtol=rtol)
+    _assert_kernel_close(o, o2, dtype)
+    _assert_kernel_close(s, s2, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -589,13 +599,11 @@ def test_backward_kernels_match_plain_version(cuda, dtype, case):
         .to(device=cuda, dtype=dtype)
     kw = dict(causal=causal, window=window)
     o, lse = fa.flash_attention_lse_plain(q, k, v, **kw)
-    atol, rtol = TOL[dtype]
     got = fab.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = fab.flash_attention_bwd_plain(q, k, v, o, lse, do, **kw)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
-        torch.testing.assert_close(g.float(), w.float(), atol=atol,
-                                   rtol=rtol)
+        _assert_kernel_close(g, w, dtype)
 
 
 def test_backward_counts_launches_and_takes_a_strided_gradient(cuda):
@@ -991,3 +999,53 @@ def test_dryrun_on_the_card_machine(cuda):
     one = recs["1xH100"]["memory"]["argument_bytes"]
     assert recs["16x16"]["memory"]["argument_bytes"] < one
     assert recs["1xH100"]["fits_80gb"] and one > 15e9     # the 15 GB cache
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+def _ep_card_rank(rank, n):
+    """One rank of ``test_expert_parallel_on_the_card_equals_grouped``:
+    layer 0's MoE of the olmoe smoke config on the card, its own slice of
+    the experts under ``moe_mesh``, against ``grouped`` with every expert
+    in this process."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed import actspec
+    from repro_torch.distributed.sharding import to_device_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import torch_dtype
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dm = to_device_mesh(make_host_mesh(model=n), "cuda")
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"),
+                                  dtype=dtype, moe_impl="expert_parallel")
+        p = {k: v[0] for k, v in
+             init_params(cfg, seed=1, device=dev)["blocks"]["moe"].items()}
+        g = torch.Generator().manual_seed(2)
+        x = (torch.randn((2, 64, cfg.d_model), generator=g) * 0.5).to(
+            dev, torch_dtype(dtype))
+        want, aux_want = moe_mod.moe_forward(p, cfg, x, impl="grouped")
+        mine = moe_mod.shard_experts(p, rank, n)
+        with torch.no_grad(), actspec.moe_mesh(dm):
+            got, aux = moe_mod.moe_forward(mine, cfg, x)
+        torch.cuda.synchronize()
+        assert got.dtype == x.dtype and float(aux) == float(aux_want)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-3)
+        else:
+            _assert_scaled_close(got, want)
+
+
+def test_expert_parallel_on_the_card_equals_grouped(cuda):
+    """2 gloo ranks sharing the card, each with half the experts: the
+    expert-parallel MoE equals ``grouped`` in float32 and, at the scaled
+    bf16 check, in bfloat16."""
+    from repro_torch.distributed.ranks import spawn_ranks
+    spawn_ranks(_ep_card_rank, 2, timeout=300)
