@@ -159,7 +159,27 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    and the rank's expert slices (relative L2 within 1e-3). A rank that
    fails or outlives its timeout fails the phase. Each rank's launches
    come back to this process.
-11. multimodal — whisper-base at full width (6 encoder and 6 decoder
+11. spmd    — qwen3-1.7b at its published widths (28 layers, d 2048, 16
+   heads, 8 kv of 128) as DTensors placed by the baseline sharding rules
+   (FSDP over ``data``, tensor parallelism over ``model``) over 4 gloo
+   ranks sharing the card as a cuda ``DeviceMesh`` (data 2, model 2),
+   every entry under ``implicit_replication``, the residual constraint
+   and the MoE mesh hook, as ``launch/dryrun.py``'s sharded pass runs
+   it; the functional collectives DTensor calls are routed to gloo's
+   c10d calls (``spmd.gloo_cuda_collectives``), and each rank first
+   checks the four collectives on CUDA tensors. float32 with TF32 off:
+   ``prefill`` of a 2 x 512 batch into a 1,024-slot cache (the full
+   logits held against one process's, atol 5e-5, rtol 1e-3) and 8
+   greedy ``decode_step``s (token for token); the loss and every
+   gradient leaf at 2 of 28 layers against each rank's own one-process
+   run (relative L2 1e-3). bfloat16: the prefill entry counted (every
+   rank's collectives by op, bytes and counts, equal to the dry-run's
+   fake-group count of the same entry on the same mesh) and timed (each
+   rank's wall beside one process's, each collective's bytes, CUDA-event
+   and host ms), its logits under ``check_scaled``. Rows 2, 3, 4 and 5
+   launch on the ranks' local shards, once per attention; each one's
+   first call is held against its plain version on the same shards.
+12. multimodal — whisper-base at full width (6 encoder and 6 decoder
    layers, 1500 frames), then llama-3.2-vision-90b at its published widths
    cut to 2 of its 20 superblocks (10 layers, 10.7B parameters), float32
    with TF32 off: the serve phase's path, each request carrying its stub
@@ -177,7 +197,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    encoder's included, against the plain attention's, one counted AdamW
    step, and counted, timed bf16 steps (rows 2, 4 and 5 launching
    exactly once per attention and recompute).
-12. train  — full-width qwen3-1.7b (28 layers, random weights) on the
+13. train  — full-width qwen3-1.7b (28 layers, random weights) on the
    ``token_batches`` stream, batch 2 x 512 tokens, float32 with TF32
    off: the loss and every gradient leaf through the kernels against
    autograd of the plain attention (``ops.attention`` swapped here
@@ -190,7 +210,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    (worst leaf's relative L2 within ``BF16_GRAD_REL_L2``), and steps
    launching the forward, dq and dkv exactly as the float32 steps do,
    timed, and one profiled.
-13. launch — qwen3-1.7b at its published widths (28 layers, bf16,
+14. launch — qwen3-1.7b at its published widths (28 layers, bf16,
    random seeded weights) through ``launch.specs.entry_fn`` at each
    workload shape with only the batch cut to fit one H100 80GB (each cut
    printed): ``prefill`` of 32,768 tokens (B 32 -> 1), ``decode_step``
@@ -210,7 +230,7 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    once (meta device: one core each, no device work), after the timed
    entries; its report table and each combo's ``fits_80gb`` are
    printed.
-14. examples — each example twin (``examples/*_torch.py``) in this
+15. examples — each example twin (``examples/*_torch.py``) in this
    process through ``runpy``: the realign demo, the quickstart (each
    served request within the serving tolerance of the forward), the
    serving driver, online serving in the simulator, in in-process and
@@ -221,7 +241,9 @@ loads. The launch counts in the
 kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model
 (both dispatches' waves for the moe models), the ep phase's bf16
-forward and fp32 loss with its backward on every rank, the multimodal
+forward and fp32 loss with its backward on every rank, the spmd phase's
+fp32 prefill and greedy steps, fp32 loss with its backward and counted
+bf16 prefill on every rank, the multimodal
 phase's
 float32 waves and decode streams and its whisper train steps,
 the float32 server loop and its disaggregated streams, the float32
@@ -2023,6 +2045,396 @@ def ep_phase(device, *, need=("flash_attention_lse",)) -> list:
         if not all(rep["launches_bf16"].get(name, 0) for rep in reps):
             fail(f"ep: {name} did not launch on every rank's forward")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# spmd: qwen3-1.7b as DTensors under the sharding rules, 4 ranks on one card
+# ---------------------------------------------------------------------------
+
+SPMD_ARCH = "qwen3-1.7b"
+SPMD_RANKS = 4
+SPMD_BATCH, SPMD_SEQ = 2, 512
+SPMD_CACHE = 1024             # decode cache slots
+SPMD_NEW = 8                  # greedy decode steps after the prompt
+SPMD_TRAIN_LAYERS = 2         # the train check's depth, of 28
+SPMD_SEED = 13
+SPMD_TIMEOUT_S = 400
+SPMD_DIR = os.path.join(HERE, "build", "spmd")
+
+
+def spmd_mesh():
+    """A host's (data 2, model 2) mesh of the 4 ranks."""
+    from repro_torch.launch.mesh import MeshShape
+    return MeshShape(("data", "model"), (2, 2))
+
+
+def spmd_shape():
+    """The prefill entry's workload at the phase's batch and length."""
+    from repro_torch.config import ShapeConfig
+    return ShapeConfig("spmd_prefill", SPMD_SEQ, SPMD_BATCH, "prefill")
+
+
+def spmd_configs():
+    """(qwen3-1.7b at its published widths in bf16, the same in fp32)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SPMD_ARCH)
+    return cfg, dataclasses.replace(cfg, dtype="float32")
+
+
+def spmd_tokens(cfg):
+    """(tokens, labels): two seeded (SPMD_BATCH, SPMD_SEQ) int32 draws."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(SPMD_SEED)
+    return tuple(torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+        SPMD_BATCH, SPMD_SEQ)).astype(np.int32)) for _ in range(2))
+
+
+def spmd_serve(params, cfg, toks):
+    """``prefill`` of ``toks`` into a ``SPMD_CACHE``-slot cache, the
+    prompt's next token, then ``SPMD_NEW`` greedy ``decode_step``s: ->
+    (the prefill's logits, the (B, 1 + SPMD_NEW) tokens). A DTensor's
+    vocabulary is gathered before each argmax (``spmd.whole_dim``)."""
+    import torch
+    from repro_torch.distributed import spmd
+    from repro_torch.models.decode import decode_step, prefill
+
+    def pick(lg):
+        return spmd.whole_dim(lg, -1).argmax(-1).to(torch.int32)
+    logits, cache = prefill(params, cfg, toks, cache_seq=SPMD_CACHE)
+    t = pick(logits[:, -1])
+    out = [t]
+    for _ in range(SPMD_NEW):
+        lg, cache = decode_step(params, cfg, cache, t[:, None])
+        t = pick(lg[:, 0])
+        out.append(t)
+    return logits, torch.stack(out, 1)
+
+
+def spmd_gloo_check(device) -> dict:
+    """Each of the four collectives of the dry-run's count through gloo
+    on tensors on ``device`` (c10d calls), values checked: a rank that
+    gloo refuses fails here, before the model runs."""
+    import torch
+    import torch.distributed as dist
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(4 * n, dtype=torch.float32, device=device) + 100 * r
+    ranks = torch.arange(n, dtype=torch.float32, device=device)
+    res = {}
+    ag = torch.empty(4 * n * n, device=device)
+    dist.all_gather_into_tensor(ag, x)
+    want = torch.cat([torch.arange(4 * n, device=device) + 100 * i
+                      for i in range(n)])
+    res["all-gather"] = bool(torch.equal(ag, want))
+    rs = torch.empty(4, device=device)
+    dist.reduce_scatter_tensor(rs, x)
+    res["reduce-scatter"] = bool(torch.equal(
+        rs, n * (torch.arange(4, device=device) + 4 * r) + 100 * ranks.sum()))
+    a2a = torch.empty(4 * n, device=device)
+    dist.all_to_all_single(a2a, x)
+    res["all-to-all"] = bool(torch.equal(a2a, torch.cat([
+        torch.arange(4, device=device) + 4 * r + 100 * i
+        for i in range(n)])))
+    ar = x.clone()
+    dist.all_reduce(ar)
+    res["all-reduce"] = bool(torch.equal(
+        ar, n * torch.arange(4 * n, device=device) + 100 * ranks.sum()))
+    if not all(res.values()):
+        raise RuntimeError(f"rank {r}: gloo on {device.type} tensors: {res}")
+    return res
+
+
+def spmd_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
+    """One of the ``n`` ranks of ``spmd_phase``: a cuda ``DeviceMesh``
+    (data 2, model 2) over the gloo group, the functional collectives
+    routed to gloo's c10d calls (``spmd.gloo_cuda_collectives``), every
+    entry run under ``implicit_replication``, the residual constraint
+    and the MoE mesh hook, as the dry-run's sharded pass runs it. In
+    turn: the fp32 prefill into a 1,024-slot cache and the greedy steps
+    (rank 0 saves the logits and tokens); the fp32 loss and gradients at
+    ``SPMD_TRAIN_LAYERS`` layers against this rank's own one-process run;
+    the bf16 prefill entry counted (collectives, launches), then timed.
+    The first call of rows 2, 3, 4 and 5 on each path is held against
+    its plain version on the same local shards. Writes
+    ``rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import actspec, spmd
+    from repro_torch.distributed.sharding import ShardingRules, to_device_mesh
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import entry_fn
+    from repro_torch.models import init_params
+    from repro_torch.training.train_step import loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dname = "float32"
+    rep = {"rank": rank, "gloo": spmd_gloo_check(device)}
+    ms = spmd_mesh()
+    dm = to_device_mesh(ms, device_type)
+    rules = ShardingRules(ms)
+    act = (rules.batch_dim_axes(SPMD_BATCH), actspec.UNCONSTRAINED,
+           actspec.UNCONSTRAINED)
+
+    @contextlib.contextmanager
+    def sharded(log=None):
+        with contextlib.ExitStack() as st:
+            if device.type == "cuda":
+                st.enter_context(spmd.gloo_cuda_collectives(log))
+            st.enter_context(implicit_replication())
+            st.enter_context(actspec.residual_spec(act))
+            st.enter_context(actspec.moe_mesh(dm))
+            yield
+
+    def place(tree, specs):
+        return spmd.distribute_tree(tree, specs, dm)
+
+    toks, labels = (t.to(device) for t in spmd_tokens(cfg))
+    dtoks, dlabels = (place(t, rules.batch_specs(t)) for t in (toks, labels))
+    worst = {}
+
+    def held(name, got, want, case):
+        worst.setdefault(name, {})[case] = check_kernel(
+            f"rank {rank} {name} on local shards, {case}", got, want, dname)
+
+    # fp32 serve: prefill + greedy steps
+    params = init_params(cfg32, seed=SPMD_SEED, device=device)
+    P = place(params, rules.params_specs(params))
+    fwd, dec = {}, {}
+    with torch.no_grad(), sharded(), first_call(fab, "flash_attention_lse",
+                                                fwd), \
+            first_call(ops, "decode_attention", dec):
+        reset_launches()
+        t = time.perf_counter()
+        logits, new = spmd_serve(P, cfg32, dtoks)
+        ep_sync(device)
+        rep["serve_s"] = time.perf_counter() - t
+        rep["launches_serve"] = read_launches()
+        logits, new = logits.full_tensor(), new.full_tensor()
+    q, k, v = fwd["args"]
+    rep["prefill_shards"] = [list(q.shape), list(k.shape)]
+    held("flash_attention_lse", fwd["out"][0],
+         fa.flash_attention_lse_plain(q, k, v, **fwd["kw"])[0], "prefill")
+    held("decode_attention", dec["out"],
+         da.decode_attention_plain(*dec["args"], **dec["kw"]), "decode")
+    rep["decode_shards"] = [list(dec["args"][0].shape),
+                            list(dec["args"][1].shape)]
+    if rank == 0:
+        torch.save({"logits": logits.cpu(), "new": new.cpu()},
+                   os.path.join(out_dir, "fp32.pt"))
+    del params, P, logits, new, fwd, dec, q, k, v
+    free_device()
+    dist.barrier()
+
+    # fp32 loss and gradients at SPMD_TRAIN_LAYERS layers
+    cfg2 = dataclasses.replace(cfg32, n_layers=SPMD_TRAIN_LAYERS)
+    params = init_params(cfg2, seed=SPMD_SEED, device=device)
+    want_loss, _, want = loss_and_grads(params, cfg2, toks, labels)
+    want = named_leaves(want)
+    P = place(params, rules.params_specs(params))
+    dq, dkv = {}, {}
+    with sharded(), first_call(fab, "launch_dq", dq), \
+            first_call(fab, "launch_dkv", dkv):
+        reset_launches()
+        loss, _, grads = loss_and_grads(P, cfg2, dtoks, dlabels)
+        ep_sync(device)
+        rep["launches_train"] = read_launches()
+        loss = loss.full_tensor()
+        grads = {k: g.full_tensor() for k, g in named_leaves(grads).items()}
+    if device.type == "cuda":
+        got_b = fab.flash_attention_bwd_plain(*dq["args"], **dq["kw"])
+        held("flash_attention_bwd_dq", dq["out"][0], got_b[0], "train")
+        held("flash_attention_bwd_dkv", dkv["out"][0], got_b[1], "train")
+        held("flash_attention_bwd_dkv", dkv["out"][1], got_b[2], "train dv")
+    rep["loss"] = (float(loss), float(want_loss))
+    rep["grad_rel_l2"] = {k: rel_l2(g, want[k]) for k, g in grads.items()}
+    rel_loss = abs(rep["loss"][0] - rep["loss"][1]) / abs(rep["loss"][1])
+    worst_g = max(rep["grad_rel_l2"].values())
+    if rel_loss > GRAD_REL_L2 or worst_g > GRAD_REL_L2 or \
+            len(grads) != len(want):
+        raise RuntimeError(f"rank {rank}: sharded loss {rep['loss']} and "
+                           f"gradients (relative L2, bound {GRAD_REL_L2:g}): "
+                           f"{rep['grad_rel_l2']}")
+    del params, P, grads, want, loss, dq, dkv
+    free_device()
+    dist.barrier()
+
+    # bf16 prefill entry at full width: counted, then timed
+    params = init_params(cfg, seed=SPMD_SEED, device=device)
+    P = place(params, rules.params_specs(params))
+    del params
+    fn = entry_fn(cfg, spmd_shape())
+    with torch.no_grad():
+        with sharded(), spmd.CollectiveCounter() as cc:
+            reset_launches()
+            logits, _ = fn(P, dtoks)
+            ep_sync(device)
+        rep["launches_bf16"] = read_launches()
+        rep["collectives"] = cc.record()
+        with sharded():
+            logits = logits.full_tensor()
+        if rank == 0:
+            torch.save(logits.cpu(), os.path.join(out_dir, "bf16.pt"))
+        del logits
+        dist.barrier()
+        log = []
+        with sharded(log):
+            t = time.perf_counter()
+            fn(P, dtoks)
+            ep_sync(device)
+            rep["wall_s"] = time.perf_counter() - t
+        rep["timed"] = [(name, b, ev[0].elapsed_time(ev[1]), h)
+                        for name, b, ev, h in log]
+    if device.type == "cuda":
+        rep["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    rep["worst"] = {k: {c: e for c, e in v.items()} for k, v in worst.items()}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+
+
+def spmd_phase(device) -> tuple:
+    """qwen3-1.7b at its published widths through every entry as
+    DTensors placed by the baseline sharding rules over ``SPMD_RANKS``
+    gloo ranks sharing the card (``spmd_rank``), held against one
+    process: the fp32 prefill logits (atol 5e-5, rtol 1e-3) and greedy
+    tokens (exactly), the fp32 loss and gradients at
+    ``SPMD_TRAIN_LAYERS`` layers (on each rank), the bf16 logits
+    (``check_scaled``); each rank's counted collectives against the
+    dry-run's fake-group count of the same entry, op by op. Returns
+    (the launch counts of the three main paths summed over the ranks,
+    the first calls' errors by kernel)."""
+    import shutil
+
+    import torch
+    from repro_torch.distributed.ranks import spawn_ranks
+    from repro_torch.launch.dryrun import dryrun_one
+    from repro_torch.models import init_params
+    from repro_torch.models.decode import prefill
+    cfg, cfg32 = spmd_configs()
+    ms = spmd_mesh()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.head_dim_}; "
+          f"{SPMD_RANKS} gloo ranks on one card as a {dict(ms.shape)} mesh, "
+          f"baseline rules; prompts {SPMD_BATCH} x {SPMD_SEQ}")
+    shutil.rmtree(SPMD_DIR, ignore_errors=True)
+    os.makedirs(SPMD_DIR)
+    t0 = time.perf_counter()
+    rec = dryrun_one(SPMD_ARCH, spmd_shape(), mesh=ms, verbose=False)
+    if not rec["ok"]:
+        fail(f"spmd: the dry-run of the prefill entry failed: "
+             f"{rec['error']}")
+    coll = rec["collectives"]
+    print(f"  dry-run on a fake group of {ms.size} ranks "
+          f"({time.perf_counter() - t0:.1f} s): {coll['count']} "
+          f"collectives, {coll['bytes'] / 2**20:.2f} MiB a device; "
+          f"{coll['per_op']}")
+    toks, _ = (t.to(device) for t in spmd_tokens(cfg))
+    params = init_params(cfg32, seed=SPMD_SEED, device=device)
+    with torch.no_grad():
+        want_logits, want_new = spmd_serve(params, cfg32, toks)
+    want_logits, want_new = want_logits.cpu(), want_new.cpu()
+    del params
+    free_device()
+    params = init_params(cfg, seed=SPMD_SEED, device=device)
+    with torch.no_grad():
+        want16, _ = prefill(params, cfg, toks)
+        ep_sync(device)
+        t = time.perf_counter()
+        prefill(params, cfg, toks)
+        ep_sync(device)
+        one_wall = time.perf_counter() - t
+    want16 = want16.cpu()
+    del params
+    free_device()
+    try:
+        wall = spawn_ranks(spmd_rank, SPMD_RANKS, cfg, cfg32, device.type,
+                           SPMD_DIR, timeout=SPMD_TIMEOUT_S)
+    except (torch.multiprocessing.ProcessRaisedException,
+            torch.multiprocessing.ProcessExitedException,
+            TimeoutError) as e:
+        fail(f"spmd: a rank failed: {e}")
+    reps = []
+    for r in range(SPMD_RANKS):
+        with open(os.path.join(SPMD_DIR, f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    print(f"  {SPMD_RANKS} ranks ran in {wall:.1f} s (spawn and imports "
+          f"included); gloo on {device.type} tensors: {reps[0]['gloo']}")
+    got = torch.load(os.path.join(SPMD_DIR, "fp32.pt"))
+    check_close(f"spmd fp32 prefill logits {tuple(got['logits'].shape)} "
+                "against one process", got["logits"], want_logits,
+                SERVE_ATOL, SERVE_RTOL)
+    if not torch.equal(got["new"], want_new):
+        fail(f"spmd: greedy tokens {got['new'].tolist()} differ from one "
+             f"process's {want_new.tolist()}")
+    print(f"  spmd greedy decode: {SPMD_NEW} steps against a {SPMD_CACHE}"
+          f"-slot cache, tokens equal to one process's: "
+          f"{got['new'].tolist()}")
+    check_scaled(f"spmd bf16 prefill logits {tuple(want16.shape)} against "
+                 "one process", torch.load(os.path.join(SPMD_DIR, "bf16.pt")),
+                 want16, TOL["bfloat16"], 1)
+    L = cfg.n_layers
+    want_launch = {
+        "launches_serve": {"flash_attention_lse": L,
+                           "decode_attention": L * SPMD_NEW},
+        "launches_train": {"flash_attention_lse": 2 * SPMD_TRAIN_LAYERS,
+                           "flash_attention_bwd_dq": SPMD_TRAIN_LAYERS,
+                           "flash_attention_bwd_dkv": SPMD_TRAIN_LAYERS},
+        "launches_bf16": {"flash_attention_lse": L}}
+    for rep in reps:
+        r = rep["rank"]
+        for key, want in want_launch.items():
+            got_l = {k: rep[key].get(k, 0) for k in want}
+            if device.type == "cuda" and got_l != want:
+                fail(f"spmd rank {r}: {key} {rep[key]}, want {want}")
+        c = rep["collectives"]
+        same = c["per_op"] == coll["per_op"] and \
+            c["per_op_count"] == coll["per_op_count"]
+        print(f"  rank {r}: prefill shards q/k {rep['prefill_shards']}, "
+              f"decode q/cache {rep['decode_shards']}; fp32 serve "
+              f"{rep['serve_s']:.2f} s; loss {rep['loss'][0]:.6f} vs one "
+              f"process {rep['loss'][1]:.6f}, worst gradient relative L2 "
+              f"{max(rep['grad_rel_l2'].values()):.2e} (bound "
+              f"{GRAD_REL_L2:g}, {len(rep['grad_rel_l2'])} leaves); bf16 "
+              f"collectives {c['per_op_count']} "
+              f"{ {k: int(v) for k, v in c['per_op'].items()} } B "
+              f"{'equal to' if same else 'DIFFER FROM'} the dry-run's; "
+              f"peak {rep.get('peak_bytes', 0) / 1e9:.2f} GB")
+        if not same:
+            fail(f"spmd rank {r}: counted collectives {c} differ from the "
+                 f"dry-run's {coll}")
+    for rep in reps:
+        by = {}
+        for name, b, ms_, h in rep["timed"]:
+            s = by.setdefault(name, [0, 0, 0.0, 0.0])
+            s[0] += 1
+            s[1] += b
+            s[2] += ms_
+            s[3] += h
+        print(f"  rank {rep['rank']} bf16 prefill {rep['wall_s'] * 1e3:.1f} "
+              f"ms (one process {one_wall * 1e3:.1f} ms); collectives by op "
+              "(calls, result bytes, device ms, host ms): "
+              + "; ".join(f"{k} {v[0]}, {v[1]}, {v[2]:.2f}, {v[3]:.2f}"
+                          for k, v in sorted(by.items())))
+    if device.type == "cuda":
+        print(f"  spmd figures on: {smi_line()} (gloo through host memory, "
+              "not NVLink or NCCL)")
+    runs = [{k: sum(rep[key].get(k, 0) for rep in reps)
+             for k in reps[0][key]}
+            for key in ("launches_serve", "launches_train", "launches_bf16")]
+    worst = {}
+    for rep in reps:
+        for name, cases in rep["worst"].items():
+            for case, e in cases.items():
+                worst.setdefault(name, {})[
+                    ("float32", f"spmd rank {rep['rank']} {case}")] = e
+    return runs, worst
 
 
 # layers of rwkv6-7b (of 32, full width) for the prefill + decode steps
@@ -3908,8 +4320,8 @@ def tensor_core_check(logs: dict) -> None:
 
 
 PHASES = ("kernels", "timing", "serve", "decode", "server", "remote",
-          "hybrid", "ssm", "moe", "ep", "multimodal", "train", "launch",
-          "examples")
+          "hybrid", "ssm", "moe", "ep", "spmd", "multimodal", "train",
+          "launch", "examples")
 # kernel -> (its source under src/repro_torch/kernels/csrc, the TPU
 # kernel it replaces)
 KERNELS = {
@@ -4031,6 +4443,12 @@ def main() -> int:
         with phase("ep"):
             free_device()
             runs.extend(ep_phase(device))
+    spmd_worst = {}
+    if "spmd" in phases:
+        with phase("spmd"):
+            free_device()
+            spmd_runs, spmd_worst = spmd_phase(device)
+            runs.extend(spmd_runs)
     if "multimodal" in phases:
         with phase("multimodal"):
             free_device()
@@ -4056,12 +4474,13 @@ def main() -> int:
     launches = {name: sum(r.get(name, 0) for r in runs) for name in KERNELS}
     print(f"  launches per path (serve, decode, server, remote, hybrid "
           f"serve, hybrid decode, ssm serve, olmoe serve, olmoe decode, "
-          f"llama4 serve, ep bf16 forward, ep fp32 loss, whisper decode, "
+          f"llama4 serve, ep bf16 forward, ep fp32 loss, spmd fp32 serve, "
+          f"spmd fp32 train, spmd bf16 prefill, whisper decode, "
           f"whisper serve, vision decode, vision serve, whisper fp32 "
           f"train, whisper bf16 train, fp32 train, bf16 train, launch "
           f"prefill_32k, decode_32k, long_500k, train_4k, then each "
           f"example run): {runs}")
-    for name, errs in launch_worst.items():
+    for name, errs in (*launch_worst.items(), *spmd_worst.items()):
         worst[name].update(errs)
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.kernels import wkv6_scan as wk

@@ -16,6 +16,14 @@ token by token, masking the ragged edge; the scans' plain versions keep
 the JAX package's chunk rule. The one-token step functions
 (:func:`ssm_step`, :func:`wkv6_step`) are plain tensor ops on either
 device, as in the JAX package (no Pallas kernel there).
+
+DTensor operands (an entry run under the sharding rules,
+``distributed/spmd.py``) are laid out so that each rank's shard is a
+whole problem of the kernel's (the batch over the batch axes, the heads
+over ``model`` where they divide it), and the kernel, or on meta and the
+CPU its plain version, runs on every rank's local shards
+(``spmd.attention_shards``, ``spmd.scan_shards``). A plain tensor never
+enters that branch.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import spmd
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 from repro_torch.kernels.flash_attention_bwd import flash_attention_trainable
@@ -55,6 +64,12 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *,
     seg_ids (B, S) int32: sequence-packing segment mask for ragged
     batches (``models.packed``) — attention stays within segments.
     """
+    if spmd.is_dtensor(q) or spmd.is_dtensor(k):
+        if seg_ids is not None:
+            raise ValueError("segmented attention takes no DTensor")
+        return spmd.attention_shards(
+            lambda a, b, c: attention(a, b, c, causal=causal, window=window,
+                                      scale=scale), q, k, v)
     if seg_ids is not None:
         # the packed serving path: the segment-masked kernel
         return flash_attention(q, k, v, seg_ids, causal=causal,
@@ -71,6 +86,11 @@ def attend_cache(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                  scale: Optional[float] = None) -> Tensor:
     """Single-token decode attention against a (possibly ring-buffer)
     cache. q (B,1,H,hd), k/v (B,Sk,KV,hd), q_pos (B,), kv_pos (B,Sk)."""
+    if spmd.is_dtensor(q) or spmd.is_dtensor(k):
+        return spmd.attention_shards(
+            lambda a, b, c, qp, kp: attend_cache(a, b, c, qp, kp,
+                                                 window=window, scale=scale),
+            q, k, v, q_pos, kv_pos)
     return decode_attention(q, k, v, q_pos, kv_pos, window=window,
                             scale=scale)
 
@@ -83,6 +103,9 @@ def wkv6(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
          state: Tensor) -> tuple[Tensor, Tensor]:
     """Whole-sequence WKV6. r,k,v,w (B,T,H,hd); u (H,hd); state
     (B,H,hd,hd) fp32 -> (o, final state)."""
+    if any(spmd.is_dtensor(t) for t in (r, k, v, w, u, state)):
+        return spmd.scan_shards(wkv6, (r, k, v, w), (u,), (), state,
+                                (2, 2, 2, 2))
     return wkv6_scan(r, k, v, w, u, state)
 
 
@@ -109,6 +132,8 @@ def ssm(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
         state: Tensor) -> tuple[Tensor, Tensor]:
     """Whole-sequence selective scan. x (B,T,H,hd); dt (B,T,H); A (H,);
     Bm/Cm (B,T,N); state (B,H,hd,N) fp32 -> (y, final state)."""
+    if any(spmd.is_dtensor(t) for t in (x, dt, A, Bm, Cm, state)):
+        return spmd.scan_shards(ssm, (x, dt), (A,), (Bm, Cm), state, (2, 2))
     return ssm_scan(x, dt, A, Bm, Cm, state)
 
 
@@ -121,5 +146,10 @@ def ssm_step(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     a = torch.exp(torch.clamp(dtt * A[None], LOG_DECAY_MIN, 0.0))
     h = a[..., None, None] * state \
         + (dtt[..., None] * xt)[..., None] * bt[:, None, None, :]
-    y = torch.einsum("bhdn,bn->bhd", h, ct)
+    if spmd.is_dtensor(h):
+        # einsum views (b, h) as one dim, which DTensor cannot do where
+        # the heads split unevenly (hymba's 50 over 16)
+        y = (h * ct[:, None, None, :]).sum(-1)
+    else:
+        y = torch.einsum("bhdn,bn->bhd", h, ct)
     return y[:, None].to(x.dtype), h

@@ -20,17 +20,39 @@ under ``launch/roofline.py``'s counter:
     made, spread evenly over the chips; ``fits_80gb`` whether the two
     fit one card's 80 GB.
 
-Collective bytes need more than one card: every record has
-``"collectives": null`` (``launch/report.py`` prints ``-``). The ``opt``
-policy sets the moe models' non-decode entries to ``expert_parallel``,
-as the JAX package does; on meta no process group and no ``DeviceMesh``
-is installed, so those entries take ``grouped`` (``models/moe.py``),
-whose FLOPs are the expert-parallel path's summed over its ranks.
+That pass runs on plain meta tensors in one process. On a mesh of more
+than one device a second pass runs the same entry as the JAX package
+compiles it, with ``in_shardings``: every input a DTensor placed by the
+policy's ``ShardingRules`` (``distributed/spmd.py``) on a fake process
+group of the mesh's size in this process, under
+``implicit_replication`` (a tensor made inside the model is the same on
+every rank), the residual constraint ``(batch axes, UNC, UNC)`` unless
+the policy is ``legacy`` (``distributed/actspec.py``) and the MoE mesh
+hook. ``spmd.CollectiveCounter`` fills ``"collectives"``: ``"bytes"``
+and ``"per_op"`` (by the HLO names of ``repro/launch/roofline.py``),
+``"count"``, ``"per_op_count"`` and ``"source"``. Those bytes are one
+device's, and the roofline's collective term divides them by chips x
+the link rate, as the JAX package's ``Roofline.collective_s`` does, so
+that the records compare. The reference's ``n_while`` and
+``loop_trips`` are not kept: an eager run dispatches every layer and
+microbatch, so there is no loop to correct for. On ``1xH100`` the
+record keeps ``"collectives": null`` (``launch/report.py`` prints
+``-``). The ``opt`` policy sets the moe models' non-decode entries to
+``expert_parallel``, as the JAX package does; the plain pass installs
+no mesh, so there they take ``grouped`` (``models/moe.py``), whose FLOPs
+are the expert-parallel path's summed over its ranks, and the sharded
+pass runs ``expert_parallel`` on each rank's tokens.
+
+``mesh`` is a name from ``launch/mesh.py``'s ``MESHES`` or any
+``MeshShape`` (a host's ``(data 2, model 2)`` of four ranks, counted to
+hold a real run's collectives against); ``shape`` a name from
+``SHAPES`` or a ``ShapeConfig``.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k
-  python -m repro_torch.launch.dryrun --arch all --shape all --mesh 1xH100 \\
+  python -m repro_torch.launch.dryrun --arch all --shape all --mesh 16x16 \\
       --out results/dryrun.jsonl
+  python -m repro_torch.launch.dryrun --arch all --shape all --mesh 1xH100
 """
 from __future__ import annotations
 
@@ -45,10 +67,11 @@ import torch
 
 from repro_torch.config import shape_for
 from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.distributed import actspec, spmd
 from repro_torch.distributed.sharding import (ShardingRules, fit_spec,
                                               shard_factor)
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import MESHES
+from repro_torch.launch.mesh import MESHES, MeshShape
 from repro_torch.launch.specs import entry_fn, input_specs
 
 HBM_BYTES = 80e9              # one H100 SXM's device memory (data sheet)
@@ -120,25 +143,56 @@ def apply_policy(cfg, shape, policy: str, mesh, *, fsdp: bool = True):
     return cfg, kv_dt, rules, mb, remat
 
 
-def dryrun_one(arch: str, shape_name: str, *, mesh: str = "1xH100",
+def mesh_name(ms: MeshShape) -> str:
+    """``ms``'s name in ``MESHES``, else its axes and sizes."""
+    for name, make in MESHES.items():
+        if make() == ms:
+            return name
+    return "x".join(f"{a}{n}" for a, n in zip(ms.axis_names, ms.sizes))
+
+
+def count_collectives(fn, sized: list, ms: MeshShape, rules, shape,
+                      policy: str) -> dict:
+    """The sharded pass: ``fn`` on its inputs, ``sized``'s (tree, spec
+    tree) pairs in ``fn``'s argument order, each placed by its specs on a
+    fake group of ``ms.size`` ranks; -> its ``"collectives"``."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    bax = rules.batch_dim_axes(shape.global_batch)
+    act = (bax, actspec.UNCONSTRAINED, actspec.UNCONSTRAINED) \
+        if bax and policy != "legacy" else None
+    with spmd.fake_group(ms) as dm:
+        dargs = tuple(spmd.distribute_tree(tree, spec, dm)
+                      for tree, spec in sized)
+        with spmd.CollectiveCounter() as cc, implicit_replication(), \
+                actspec.residual_spec(act), actspec.moe_mesh(dm):
+            out = fn(*dargs)
+        del out, dargs
+    return cc.record()
+
+
+def dryrun_one(arch: str, shape_name, *, mesh="1xH100",
                fsdp: bool = True, policy: str = "baseline",
                batch: int = 0, verbose: bool = True,
                save_ops: str = "") -> dict:
-    """Count one (arch, shape) entry on meta and size it on ``mesh``.
-    ``batch`` > 0 cuts the shape's global batch."""
+    """Count one (arch, shape) entry on meta and size it on ``mesh`` (a
+    name from ``MESHES`` or a ``MeshShape``); on a mesh of more than one
+    device, count its collectives on DTensors (the module's docstring).
+    ``shape_name`` is a name from ``SHAPES`` or a ``ShapeConfig``;
+    ``batch`` > 0 cuts its global batch."""
     t0 = time.perf_counter()
-    shape = SHAPES[shape_name]
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    shape_name = shape.name
     if batch:
         shape = dataclasses.replace(shape, global_batch=batch)
-    ms = MESHES[mesh]()
+    ms = MESHES[mesh]() if isinstance(mesh, str) else mesh
+    mesh = mesh_name(ms)
     cfg, kv_dt, rules, mb, remat = apply_policy(
         shape_for(get_config(arch), shape), shape, policy, ms, fsdp=fsdp)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh,
            "chips": ms.size, "fsdp": fsdp, "policy": policy,
            "global_batch": shape.global_batch}
     try:
-        specs = input_specs(arch, shape_name, kv_cache_dtype=kv_dt,
-                            batch=batch)
+        specs = input_specs(arch, shape, kv_cache_dtype=kv_dt)
         # the policy's moe impl; every other field is input_specs' cfg
         specs["cfg"] = dataclasses.replace(specs["cfg"],
                                            moe_impl=cfg.moe_impl)
@@ -172,11 +226,14 @@ def dryrun_one(arch: str, shape_name: str, *, mesh: str = "1xH100",
             with open(save_ops, "a") as f:
                 f.write(json.dumps({"arch": arch, "shape": shape_name,
                                     "per_op": stats.per_op}) + "\n")
+        coll = None if ms.size == 1 else count_collectives(
+            fn, sized, ms, rules, shape, policy)
         mf = rl.model_flops(specs["cfg"], shape)
         flops = stats.flops if stats.flops > 0.1 * mf else mf
         hbm = max(stats.bytes, rl.hbm_bytes_estimate(specs["cfg"], shape))
         roof = rl.Roofline(chips=ms.size, flops=flops, hbm_bytes=hbm,
-                           collective_bytes=0.0, model_flops_=mf)
+                           collective_bytes=coll["bytes"] if coll else 0.0,
+                           model_flops_=mf)
         arg_b = argument_bytes(sized, ms)
         temp_b = int(stats.peak_bytes) // ms.size
         rec.update({
@@ -191,7 +248,7 @@ def dryrun_one(arch: str, shape_name: str, *, mesh: str = "1xH100",
                         "n_ops": stats.n_ops},
             "flops_source": FLOPS_SOURCE,
             "microbatches": mb, "remat": remat,
-            "collectives": None,
+            "collectives": coll,
             "roofline": roof.to_dict(),
         })
         if verbose:
@@ -200,13 +257,16 @@ def dryrun_one(arch: str, shape_name: str, *, mesh: str = "1xH100",
                   f"analysed={rec['compile_s']:6.1f}s "
                   f"args/dev={m['argument_bytes'] / 2**30:7.2f}GiB "
                   f"temp/dev={m['temp_bytes'] / 2**30:7.2f}GiB "
-                  f"fits_80gb={rec['fits_80gb']} dom={roof.dominant}")
+                  f"fits_80gb={rec['fits_80gb']} "
+                  + ("" if coll is None else
+                     f"coll={coll['bytes'] / 2**30:8.2f}GiB ")
+                  + f"dom={roof.dominant}")
     except Exception as e:  # noqa: BLE001 — record and continue the sweep
         rec.update({"ok": False, "error": f"{type(e).__name__}: {e}",
                     "compile_s": round(time.perf_counter() - t0, 1)})
         if verbose:
             print(f"[FAIL] {arch} {shape_name} {mesh}: {rec['error']}")
-            traceback.print_exc(limit=3)
+            traceback.print_exc()
     return rec
 
 

@@ -1,9 +1,9 @@
 """Render dry-run JSONL records into the EXPERIMENTS.md roofline tables.
 
 The port of ``repro/launch/report.py``, for the records of
-``repro_torch.launch.dryrun``. A record without collective counts
-(``"collectives": null``: one card, or a mesh whose collectives the port
-does not count yet) shows ``-`` in those columns.
+``repro_torch.launch.dryrun``: the collective columns read the bytes and
+count the dry-run's sharded pass recorded (``distributed/spmd.py``); a
+record without them (``"collectives": null``: one card) shows ``-``.
 
   python -m repro_torch.launch.report results/dryrun.jsonl --mesh 1xH100
 """

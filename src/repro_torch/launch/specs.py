@@ -35,14 +35,16 @@ def params_specs(cfg: ModelConfig, *, device=META) -> dict:
     return init_params(cfg, device=device)
 
 
-def input_specs(arch: str, shape_name: str, *, kv_cache_dtype: str = "",
+def input_specs(arch: str, shape_name, *, kv_cache_dtype: str = "",
                 batch: int = 0, device=META) -> dict:
     """Every entry input for (arch, workload shape): {"cfg", "params",
     "extras", and "opt_state" + "batch" (train), "tokens" (prefill) or
-    "tokens" + "cache" (decode)}. ``batch`` > 0 cuts the shape's global
-    batch; ``device`` meta allocates nothing (elsewhere the tensors are
-    zeros, the parameters a seeded draw)."""
-    shape = SHAPES[shape_name]
+    "tokens" + "cache" (decode)}. ``shape_name`` is a name from
+    ``SHAPES`` or a ``ShapeConfig``; ``batch`` > 0 cuts the shape's
+    global batch; ``device`` meta allocates nothing (elsewhere the
+    tensors are zeros, the parameters a seeded draw)."""
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) \
+        else shape_name
     if batch:
         shape = dataclasses.replace(shape, global_batch=batch)
     cfg = shape_for(get_config(arch), shape)

@@ -9,6 +9,10 @@ Decode writes the cache IN PLACE: where the JAX package returns an
 updated copy (``.at[].set``, ``dynamic_update_slice``), :func:`attn_decode`
 writes the new token's k/v (and int8 scales) into the cache tensors it
 is given and returns those same tensors, so a step never copies a cache.
+A DTensor cache (an entry run under the sharding rules,
+``distributed/spmd.py``) is the exception: DTensor refuses an indexed
+in-place write into a batch-sharded tensor, so there the write is an
+out-of-place select and the new tensors are returned.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed import actspec
+from repro_torch.distributed import actspec, spmd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, dense_init, rms_head_norm,
                                        rope_freqs, torch_dtype)
@@ -48,24 +52,22 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _project_q(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
-    B, S, _ = x.shape
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim_)
+    q = spmd.split_last(q, (cfg.n_heads, cfg.head_dim_))
     if "q_norm" in p:
         q = rms_head_norm(p["q_norm"], q)
     return q
 
 
 def _project_kv(p: dict, cfg: ModelConfig, x: Tensor) -> tuple[Tensor, Tensor]:
-    B, S, _ = x.shape
     k = x @ p["wk"]
     v = x @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim_)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim_)
+    k = spmd.split_last(k, (cfg.n_kv_heads, cfg.head_dim_))
+    v = spmd.split_last(v, (cfg.n_kv_heads, cfg.head_dim_))
     if "k_norm" in p:
         k = rms_head_norm(p["k_norm"], k)
     return k, v
@@ -100,7 +102,7 @@ def attn_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
     o = ops.attention(q, k, v, causal=causal and not cross,
                       window=0 if cross else window,
                       seg_ids=None if cross else seg_ids)
-    out = o.reshape(B, S, -1) @ p["wo"]
+    out = spmd.reshape(o, B, S, -1) @ p["wo"]
     if return_kv:
         return out, (k, v)
     return out
@@ -139,9 +141,21 @@ def _slot(pos: Tensor, cache_len: int, window: int) -> Tensor:
     return torch.clamp(pos, max=cache_len - 1)
 
 
+def _at_slot(cache: Tensor, slot: Tensor) -> Tensor:
+    """(B, Sc, 1...) bool, broadcastable to ``cache``: True at row b's
+    ``slot[b]``."""
+    hit = torch.arange(cache.shape[1], device=cache.device)[None] \
+        == slot[:, None]
+    return hit.reshape(*hit.shape, *(1,) * (cache.dim() - 2))
+
+
 def _write_slot(cache: Tensor, new: Tensor, slot: Tensor) -> Tensor:
     """cache (B,Sc,...), new (B,1,...), slot (B,): writes row b's new entry
-    at slot[b] in place and returns ``cache``."""
+    at slot[b] in place and returns ``cache``; a DTensor cache gets a new
+    tensor instead."""
+    if spmd.is_dtensor(cache):
+        return torch.where(spmd.laid_like(_at_slot(cache, slot), cache),
+                           spmd.laid_like(new.to(cache.dtype), cache), cache)
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, slot.long()] = new[:, 0].to(cache.dtype)
     return cache
@@ -157,7 +171,7 @@ def attn_decode(p: dict, cfg: ModelConfig, x: Tensor,
     """One-token decode. x (B,1,d); cache_k/v (B,Sc,KV,hd); pos (B,) int32;
     kv_pos (B,Sc) already holding ``pos`` at this step's slot. Returns
     (out (B,1,d), cache_k, cache_v, scales) — the caches (and the int8
-    ``scales`` pair) written in place.
+    ``scales`` pair) written in place (DTensors: new tensors).
 
     For cross-attention pass ``cross_kv=(k, v)`` precomputed at prefill
     (:func:`project_cross_kv`): the query attends to all of it, and the
@@ -178,15 +192,15 @@ def attn_decode(p: dict, cfg: ModelConfig, x: Tensor,
     if cache_k.dtype == torch.int8:
         kq, ks = quantize_kv(k_new)
         vq, vs = quantize_kv(v_new)
-        _write_slot(cache_k, kq, slot)
-        _write_slot(cache_v, vq, slot)
-        _write_slot(scales[0], ks, slot)
-        _write_slot(scales[1], vs, slot)
+        cache_k = _write_slot(cache_k, kq, slot)
+        cache_v = _write_slot(cache_v, vq, slot)
+        scales = (_write_slot(scales[0], ks, slot),
+                  _write_slot(scales[1], vs, slot))
         k_eff = dequantize_kv(cache_k, scales[0], x.dtype)
         v_eff = dequantize_kv(cache_v, scales[1], x.dtype)
     else:
-        _write_slot(cache_k, k_new, slot)
-        _write_slot(cache_v, v_new, slot)
+        cache_k = _write_slot(cache_k, k_new, slot)
+        cache_v = _write_slot(cache_v, v_new, slot)
         k_eff, v_eff = cache_k, cache_v
     o = ops.attend_cache(q, k_eff, v_eff, pos, kv_pos, window=window)
     return o.reshape(B, 1, -1) @ p["wo"], cache_k, cache_v, scales
@@ -196,6 +210,11 @@ def update_kv_pos(kv_pos: Tensor, pos: Tensor, cache_len: int,
                   window: int) -> Tensor:
     """Track global positions stored in each cache slot (-1 = unwritten).
     Returns a new tensor; ``kv_pos`` is left as it was."""
+    if spmd.is_dtensor(kv_pos):
+        slot = _slot(pos, cache_len, window)
+        return torch.where(spmd.laid_like(_at_slot(kv_pos, slot), kv_pos),
+                           spmd.laid_like(pos.to(kv_pos.dtype)[:, None],
+                                          kv_pos), kv_pos)
     out = kv_pos.clone()
     rows = torch.arange(out.shape[0], device=out.device)
     out[rows, _slot(pos, cache_len, window).long()] = pos.to(out.dtype)

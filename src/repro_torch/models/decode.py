@@ -23,6 +23,13 @@ leading axes (superblock G, layer E) beside each superblock's image k/v
 cross-attention k/v of the encoder's memory (``xk``/``xv``). Prefill
 projects both once (``attention.project_cross_kv``); decode only reads
 them.
+
+A DTensor cache (an entry run under the sharding rules,
+``distributed/spmd.py``) is not written in place: each layer's new
+tensors are stacked into new cache entries after the step, and prefill
+stacks its layers' k/v (and states) into the cache it returns. DTensor
+refuses the indexed in-place writes, and a plain cache made inside
+prefill would hold every rank's whole cache.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed import actspec
+from repro_torch.distributed import actspec, spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
@@ -124,24 +131,33 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
 # Decode
 # ---------------------------------------------------------------------------
 
+def _store(c: dict, key: str, new: Tensor) -> None:
+    """``c[key]`` := ``new``: in place into a plain cache view; a DTensor
+    view is replaced (``decode_step`` stacks the layers' new tensors)."""
+    if spmd.is_dtensor(c[key]):
+        c[key] = new
+    else:
+        c[key].copy_(new)
+
+
 def _block_decode(p: dict, cfg: ModelConfig, x: Tensor, c: dict,
                   pos: Tensor, kv_pos: Tensor, *, kind: str = "self",
                   memory_kv: Optional[tuple] = None) -> tuple[Tensor, dict]:
     """One-token decode through one block of ``kind`` (self | cross |
-    dec). ``c`` holds this layer's cache views, written in place;
-    returns (x, c). Cross and dec blocks attend to ``memory_kv``, the
-    (k, v) prefill projected."""
+    dec). ``c`` holds this layer's cache views, written in place (a
+    DTensor's replaced by its new tensor); returns (x, c). Cross and dec
+    blocks attend to ``memory_kv``, the (k, v) prefill projected."""
     if cfg.family == "ssm":
         h = nn.apply_norm(p["ln1"], cfg, x)
         y, shift, wkv = rwkv_mod.time_mix_decode(
             p["time_mix"], cfg, h, c["shift_tm"], c["wkv"])
-        c["shift_tm"].copy_(shift)
-        c["wkv"].copy_(wkv)
+        _store(c, "shift_tm", shift)
+        _store(c, "wkv", wkv)
         x = x + y
         h = nn.apply_norm(p["ln2"], cfg, x)
         y, shift = rwkv_mod.channel_mix(p["channel_mix"], cfg, h,
                                         shift_carry=c["shift_cm"])
-        c["shift_cm"].copy_(shift)
+        _store(c, "shift_cm", shift)
         return x + y, c
     if kind == "cross":
         h = nn.apply_norm(p["ln1"], cfg, x)
@@ -153,14 +169,16 @@ def _block_decode(p: dict, cfg: ModelConfig, x: Tensor, c: dict,
             * nn.apply_mlp(p["mlp"], cfg, h), c
     h = nn.apply_norm(p["ln1"], cfg, x)
     scales = (c["k_scale"], c["v_scale"]) if "k_scale" in c else None
-    y, _, _, _ = attn.attn_decode(p["attn"], cfg, h, c["k"], c["v"], pos,
-                                  kv_pos, window=decode_window(cfg),
-                                  scales=scales)
+    y, c["k"], c["v"], scales = attn.attn_decode(
+        p["attn"], cfg, h, c["k"], c["v"], pos, kv_pos,
+        window=decode_window(cfg), scales=scales)
+    if scales is not None:
+        c["k_scale"], c["v_scale"] = scales
     if cfg.family == "hybrid":
         ys, tail, scan = ssm_mod.ssm_decode(p["ssm"], cfg, h, c["ssm_conv"],
                                             c["ssm_scan"])
-        c["ssm_conv"].copy_(tail)
-        c["ssm_scan"].copy_(scan)
+        _store(c, "ssm_conv", tail)
+        _store(c, "ssm_scan", scan)
         y = 0.5 * (y + ys)
     x = x + y
     if kind == "dec":
@@ -219,13 +237,16 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor
                                     decode_window(cfg))
     lkeys = _layer_cache_keys(cfg)
     blocks = params["blocks"]
+    done = []                      # each layer's cache views, as left
     if cfg.family == "vlm":
         for g in range(cfg.n_layers // cfg.vision.cross_attn_every):
             sb = _layer(blocks, g)
+            done.append([])
             for e in range(cfg.vision.cross_attn_every):
-                x, _ = _block_decode(_layer(sb, e), cfg, x,
+                x, c = _block_decode(_layer(sb, e), cfg, x,
                                      {k: cache[k][g, e] for k in lkeys},
                                      pos, kv_pos)
+                done[-1].append(c)
             x, _ = _block_decode(_layer(params["cross_blocks"], g), cfg, x,
                                  {}, pos, kv_pos, kind="cross",
                                  memory_kv=(cache["img_k"][g],
@@ -235,13 +256,25 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, tokens: Tensor
         for i in range(cfg.n_layers):
             c = {k: cache[k][i] for k in lkeys}
             mem = (c["xk"], c["xv"]) if kind == "dec" else None
-            x, _ = _block_decode(_layer(blocks, i), cfg, x, c, pos, kv_pos,
+            x, c = _block_decode(_layer(blocks, i), cfg, x, c, pos, kv_pos,
                                  kind=kind, memory_kv=mem)
+            done.append(c)
     new_cache = dict(cache)
+    if spmd.is_dtensor(cache[lkeys[0]]):
+        new_cache.update(_stacked(done, lkeys))
     if kv_pos is not None:
         new_cache["kv_pos"] = kv_pos
     new_cache["pos"] = pos + 1
     return unembed(params, cfg, x), new_cache
+
+
+def _stacked(layers: list, keys) -> dict:
+    """{key: the layers' tensors stacked}: ``layers`` a list of per-layer
+    dicts, or (vlm) a list of lists of them, stacked twice."""
+    def stack(items, key):
+        return torch.stack([stack(it, key) if isinstance(it, list)
+                            else it[key] for it in items])
+    return {k: stack(layers, k) for k in keys}
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +312,14 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
     cache = init_cache(cfg, B, cache_seq, device=dev)
     x = add_positions(cfg, embed_tokens(params, cfg, tokens))
     blocks = params["blocks"]
+    sharded = spmd.is_dtensor(x)
+    done = []                      # DTensor: each layer's new cache tensors
+
+    def put(c: dict, key: str, new: Tensor) -> None:
+        if sharded:
+            c[key] = new
+        else:
+            c[key].copy_(new)
 
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
@@ -290,9 +331,13 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
             hn = nn.apply_norm(p_l["ln2"], cfg, x)
             y, sh_cm = rwkv_mod.channel_mix(p_l["channel_mix"], cfg, hn)
             x = x + y
-            cache["wkv"][i].copy_(wkv)
-            cache["shift_tm"][i].copy_(sh_tm)
-            cache["shift_cm"][i].copy_(sh_cm)
+            c = {k: cache[k][i] for k in ("wkv", "shift_tm", "shift_cm")}
+            put(c, "wkv", wkv)
+            put(c, "shift_tm", sh_tm)
+            put(c, "shift_cm", sh_cm)
+            done.append(c)
+        if sharded:
+            cache.update(_stacked(done, ("wkv", "shift_tm", "shift_cm")))
         cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
         return unembed(params, cfg, x), cache
 
@@ -300,11 +345,20 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
     W = decode_window(cfg)
     quant = cache["k"].dtype == torch.int8
 
-    def capture(dst: Tensor, new: Tensor) -> None:
-        if W and Sc < S:                                   # ring buffer
-            dst.copy_(_to_ring(new, S, Sc))
+    def capture(c: dict, key: str, new: Tensor) -> None:
+        if sharded:                      # out of place: stacked at the end
+            new = spmd.reduced(new)      # no pending sums in a cache
+            if W and Sc < S:
+                c[key] = torch.roll(new[:, S - Sc:S], S % Sc, dims=1)
+            elif Sc > S:
+                c[key] = torch.cat([new, new.new_zeros(
+                    (new.shape[0], Sc - S, *new.shape[2:]))], dim=1)
+            else:
+                c[key] = new
+        elif W and Sc < S:                                 # ring buffer
+            c[key].copy_(_to_ring(new, S, Sc))
         else:                                              # pad to capacity
-            dst[:, :S] = new
+            c[key][:, :S] = new
 
     def layer(p_l: dict, c: dict, x: Tensor, mem: Optional[Tensor]
               ) -> Tensor:
@@ -317,8 +371,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
         if cfg.family == "hybrid":
             ys, tail, scan = ssm_mod.ssm_forward_with_state(p_l["ssm"], cfg,
                                                             hn)
-            c["ssm_conv"].copy_(tail)
-            c["ssm_scan"].copy_(scan)
+            put(c, "ssm_conv", tail)
+            put(c, "ssm_scan", scan)
             y = 0.5 * (y + ys)
         x = x + y
         if mem is not None:
@@ -327,32 +381,38 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
                                             kv_src=mem, causal=False,
                                             return_kv=True)
             x = x + y
-            c["xk"].copy_(xk)
-            c["xv"].copy_(xv)
+            put(c, "xk", xk)
+            put(c, "xv", xv)
         hn = nn.apply_norm(p_l["ln2"], cfg, x)
         x = x + _mlp(p_l, cfg, hn)
         if quant:
             k, ks = attn.quantize_kv(k)
             v, vs = attn.quantize_kv(v)
-            capture(c["k_scale"], ks)
-            capture(c["v_scale"], vs)
-        capture(c["k"], k)
-        capture(c["v"], v)
+            capture(c, "k_scale", ks)
+            capture(c, "v_scale", vs)
+        capture(c, "k", k)
+        capture(c, "v", v)
+        done.append(c)
         return x
 
     lkeys = _layer_cache_keys(cfg)
     if cfg.family == "vlm":
         img = extras["images"]
+        imgs = []
         for g in range(cfg.n_layers // cfg.vision.cross_attn_every):
             sb = _layer(blocks, g)
             for e in range(cfg.vision.cross_attn_every):
                 x = layer(_layer(sb, e), {k: cache[k][g, e] for k in lkeys},
                           x, None)
+            # the superblock's layers, one level of nesting for _stacked
+            done[-cfg.vision.cross_attn_every:] = \
+                [done[-cfg.vision.cross_attn_every:]]
             p_x = _layer(params["cross_blocks"], g)
             x, _ = block_forward(p_x, cfg, x, memory=img, kind="cross")
             ik, iv = attn.project_cross_kv(p_x["xattn"], cfg, img)
-            cache["img_k"][g].copy_(ik)
-            cache["img_v"][g].copy_(iv)
+            imgs.append({k: cache[k][g] for k in ("img_k", "img_v")})
+            put(imgs[-1], "img_k", ik)
+            put(imgs[-1], "img_v", iv)
     else:
         mem = encode_audio(params, cfg, extras["frames"]) \
             if cfg.family == "audio" else None
@@ -360,6 +420,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, *,
             x = actspec.constrain(layer(_layer(blocks, i),
                                         {k: cache[k][i] for k in lkeys}, x,
                                         mem))
+    if sharded:
+        cache.update(_stacked(done, lkeys))
+        if cfg.family == "vlm":
+            cache.update(_stacked(imgs, ("img_k", "img_v")))
 
     # kv_pos: which global position occupies each cache slot
     if Sc >= S:                                            # plain cache

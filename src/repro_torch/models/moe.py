@@ -37,7 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed import actspec
+from repro_torch.distributed import actspec, spmd
 from repro_torch.models.layers import (_trunc_normal, apply_mlp, dense_init,
                                        init_mlp, torch_dtype)
 
@@ -87,9 +87,14 @@ def _route(p: dict, cfg: ModelConfig, xf: Tensor):
 def _counts(idx: Tensor, n: int) -> Tensor:
     """``torch.bincount(idx, minlength=n)`` for ``idx`` in [0, n), by a
     scatter-add, which the meta device also runs (bincount has no meta
-    kernel, ``launch/dryrun.py``); integer sums, so exactly equal."""
-    return torch.zeros(n, dtype=torch.int64, device=idx.device) \
-        .scatter_add_(0, idx.long(), torch.ones_like(idx, dtype=torch.int64))
+    kernel, ``launch/dryrun.py``); integer sums, so exactly equal. A
+    DTensor ``idx`` takes the out-of-place scatter-add: DTensor refuses
+    the in-place one into a fresh replicated tensor."""
+    zeros = torch.zeros(n, dtype=torch.int64, device=idx.device)
+    ones = torch.ones_like(idx, dtype=torch.int64)
+    if spmd.is_dtensor(idx):
+        return zeros.scatter_add(0, idx.long(), ones)
+    return zeros.scatter_add_(0, idx.long(), ones)
 
 
 def _aux_loss(probs: Tensor, eidx: Tensor, n_experts: int) -> Tensor:
@@ -156,11 +161,13 @@ def moe_forward(p: dict, cfg: ModelConfig, x: Tensor, *,
         mesh = actspec.get_moe_mesh()
         n = 0 if mesh is None else _axis_size(mesh)
         if n and cfg.moe.n_experts % n == 0:
+            if spmd.is_dtensor(x):
+                return _expert_parallel_shards(p, cfg, x, mesh)
             return moe_forward_expert_parallel(p, cfg, x, mesh=mesh)
         impl = "grouped"                 # no mesh installed, or E % n
     e = cfg.moe
     B, S, d = x.shape
-    xf = x.reshape(-1, d)
+    xf = spmd.reshape(x, -1, d)
     N, E = xf.shape[0], e.n_experts
     gates, eidx, probs = _route(p, cfg, xf)
     aux = _aux_loss(probs, eidx, E)
@@ -319,7 +326,7 @@ def moe_forward_expert_parallel(p: dict, cfg: ModelConfig, x: Tensor, *,
     else:
         raise ValueError(f"expert weights for {have} experts: want all "
                          f"{E} or this rank's {m}")
-    xf = x.reshape(-1, d)
+    xf = spmd.reshape(x, -1, d)
     gates, eidx, probs = _route(p, cfg, xf)
     aux = _aux_loss(probs, eidx, E)
     order, slot, keep, cap = dispatch(cfg, eidx)
@@ -332,3 +339,43 @@ def moe_forward_expert_parallel(p: dict, cfg: ModelConfig, x: Tensor, *,
     if "shared" in p:
         y = y + apply_mlp(p["shared"], cfg, xf)
     return y.reshape(B, S, d), aux
+
+
+def _expert_parallel_shards(p: dict, cfg: ModelConfig, x: Tensor, mesh,
+                            axis: str = "model") -> tuple[Tensor, Tensor]:
+    """:func:`moe_forward_expert_parallel` on DTensors (an entry run under
+    the sharding rules, ``distributed/spmd.py``): each rank runs it on
+    its local tokens (the batch over the batch axes it divides, whole
+    over ``model``) with the router and shared expert whole and its
+    E / n experts of each stack (``Shard(0)`` over ``axis``); the
+    gathers that place them are counted where they run. Where the JAX
+    package's shard_map replicates every token on every rank, here a
+    rank's capacity, drops and aux loss are its own tokens'; the aux
+    returned is the mean of the ranks' (``Partial("avg")`` over the
+    batch axes). Gradients: the experts' are summed over the batch axes
+    (each rank's covers its tokens), the router's and shared expert's
+    too (the combine makes them whole over ``axis``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    m = tuple(mesh.mesh_dim_names).index(axis)
+    bd = spmd.batch_dims(mesh, x.shape[0])
+    rows = spmd.layout(mesh, bd, {})
+    whole = spmd.layout(mesh, [], {})
+    summed = tuple(Partial() if i in bd else pl for i, pl in enumerate(whole))
+    xl = spmd.local_shard(spmd.as_dtensor(x, mesh), mesh, rows)
+
+    def local(t, place, grad):
+        return spmd.local_shard(spmd.as_dtensor(t, mesh), mesh, place, grad)
+    experts = tuple(Shard(0) if i == m else pl for i, pl in enumerate(whole))
+    expert_grads = tuple(Shard(0) if i == m else pl
+                         for i, pl in enumerate(summed))
+    pl_ = {k: local(v, experts, expert_grads) if k in EXPERT_KEYS
+           else local(v, whole, summed) for k, v in p.items()
+           if not isinstance(v, dict)}
+    if "shared" in p:
+        pl_["shared"] = {k: local(v, whole, summed)
+                         for k, v in p["shared"].items()}
+    y, aux = moe_forward_expert_parallel(pl_, cfg, xl, mesh=mesh, axis=axis)
+    avg = tuple(Partial("avg") if i in bd else pl
+                for i, pl in enumerate(whole))
+    return (spmd.from_shards(y, mesh, rows, x),
+            DTensor.from_local(aux, mesh, avg, run_check=False))

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, rms_head_norm, torch_dtype
 
@@ -81,7 +82,6 @@ def _mix(x: Tensor, xs: Tensor, mu: Tensor) -> Tensor:
 
 
 def _time_mix_inputs(p: dict, cfg: ModelConfig, x: Tensor, xs: Tensor):
-    B, S, d = x.shape
     H, hd = rwkv_dims(cfg)
     r = _mix(x, xs, p["mu_r"]) @ p["w_r"]
     k = _mix(x, xs, p["mu_k"]) @ p["w_k"]
@@ -90,9 +90,7 @@ def _time_mix_inputs(p: dict, cfg: ModelConfig, x: Tensor, xs: Tensor):
     xw = _mix(x, xs, p["mu_w"])
     dec = p["w0"] + torch.tanh(xw @ p["wa"]) @ p["wb"]
     w = torch.exp(-torch.exp(dec.float()))                 # (B,S,d) in (0,1)
-    shp = (B, S, H, hd)
-    return (r.reshape(shp), k.reshape(shp), v.reshape(shp),
-            w.reshape(shp), g)
+    return (*(spmd.split_last(t, (H, hd)) for t in (r, k, v, w)), g)
 
 
 def time_mix_forward(p: dict, cfg: ModelConfig, x: Tensor,
@@ -100,7 +98,7 @@ def time_mix_forward(p: dict, cfg: ModelConfig, x: Tensor,
                      wkv_state: Optional[Tensor] = None,
                      ) -> tuple[Tensor, Tensor, Tensor]:
     """Full-seq time-mix. Returns (y, new_shift_carry, new_wkv_state)."""
-    B, S, d = x.shape
+    B = x.shape[0]
     H, hd = rwkv_dims(cfg)
     xs = _shift(x, shift_carry)
     r, k, v, w, g = _time_mix_inputs(p, cfg, x, xs)
@@ -108,7 +106,7 @@ def time_mix_forward(p: dict, cfg: ModelConfig, x: Tensor,
         wkv_state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
                                 device=x.device)
     o, wkv_state = ops.wkv6(r, k, v, w, p["u"], wkv_state)
-    o = rms_head_norm(p["ln_x"], o).reshape(B, S, d)
+    o = spmd.merge_last(rms_head_norm(p["ln_x"], o))
     y = (o * g) @ p["w_o"]
     return y, x[:, -1:], wkv_state
 
@@ -117,10 +115,9 @@ def time_mix_decode(p: dict, cfg: ModelConfig, x: Tensor,
                     shift_carry: Tensor, wkv_state: Tensor
                     ) -> tuple[Tensor, Tensor, Tensor]:
     """One-token time-mix. x (B,1,d)."""
-    B, _, d = x.shape
     r, k, v, w, g = _time_mix_inputs(p, cfg, x, shift_carry)
     o, wkv_state = ops.wkv6_step(r, k, v, w, p["u"], wkv_state)
-    o = rms_head_norm(p["ln_x"], o).reshape(B, 1, d)
+    o = spmd.merge_last(rms_head_norm(p["ln_x"], o))
     y = (o * g) @ p["w_o"]
     return y, x, wkv_state
 

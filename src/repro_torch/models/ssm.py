@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, torch_dtype
 
@@ -89,8 +90,8 @@ def _split_project(p: dict, cfg: ModelConfig, x: Tensor):
     return xi, z, (d_in, H, hd)
 
 
-def _post(p: dict, y: Tensor, z: Tensor, B: int, S: int) -> Tensor:
-    y = y.reshape(B, S, -1) * F.silu(z)
+def _post(p: dict, y: Tensor, z: Tensor) -> Tensor:
+    y = spmd.merge_last(y) * F.silu(z)
     return y @ p["w_out"]
 
 
@@ -110,14 +111,14 @@ def ssm_forward_with_state(p: dict, cfg: ModelConfig, x: Tensor
     xi, z, (d_in, H, hd) = _split_project(p, cfg, x)
     xc = F.silu(_causal_conv(xi, p["conv"]))
     dt, A, Bm, Cm = _scan_inputs(p, xc)
-    xh = xc.reshape(B, S, H, hd)
+    xh = spmd.split_last(xc, (H, hd))
     state = torch.zeros((B, H, hd, cfg.ssm.state_dim), dtype=torch.float32,
                         device=x.device)
     y, state = ops.ssm(xh, dt, A, Bm, Cm, state)
     cw = cfg.ssm.conv_width
     tail = xi[:, S - (cw - 1):] if S >= cw - 1 else torch.cat(
         [xi.new_zeros((B, cw - 1 - S, d_in)), xi], dim=1)
-    return _post(p, y, z, B, S), tail, state
+    return _post(p, y, z), tail, state
 
 
 def ssm_forward(p: dict, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -131,11 +132,10 @@ def ssm_decode(p: dict, cfg: ModelConfig, x: Tensor,
     """One-token SSM step. x (B,1,d); conv_tail (B,cw-1,d_in);
     scan_state (B,H,hd,N). Returns (y (B,1,d), conv_tail', scan_state')
     as new tensors: the caller writes them into its cache."""
-    B = x.shape[0]
-    xi, z, (d_in, H, hd) = _split_project(p, cfg, x)
+    xi, z, (_, H, hd) = _split_project(p, cfg, x)
     xc = F.silu(_causal_conv(xi, p["conv"], tail=conv_tail))
     new_tail = torch.cat([conv_tail[:, 1:], xi], dim=1)
     dt, A, Bm, Cm = _scan_inputs(p, xc)
-    xh = xc.reshape(B, 1, H, hd)
+    xh = spmd.split_last(xc, (H, hd))
     y, scan_state = ops.ssm_step(xh, dt, A, Bm, Cm, scan_state)
-    return _post(p, y, z, B, 1), new_tail, scan_state
+    return _post(p, y, z), new_tail, scan_state

@@ -38,7 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed import actspec
+from repro_torch.distributed import actspec, spmd
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as nn
 from repro_torch.models import moe as moe_mod
@@ -302,6 +302,8 @@ def vlm_stack_forward(params: dict, cfg: ModelConfig, x: Tensor,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params: dict, cfg: ModelConfig, tokens: Tensor) -> Tensor:
+    if spmd.is_dtensor(params["embed"]):
+        return spmd.vocab_lookup(params["embed"], tokens.long())
     return params["embed"][tokens.long()]
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import spmd
 from repro_torch.models.transformer import Remat, forward
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state, tree_leaves,
@@ -45,7 +46,10 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
                               remat=remat)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    # a vocab-sharded DTensor's gather is a masked partial sum, which
+    # DTensor cannot index before the sum is done (spmd.reduced)
+    tgt = spmd.reduced(torch.gather(logits, -1, labels.long()[..., None]))
+    tgt = tgt[..., 0]
     ce = (logz - tgt).mean()
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     return ce + aux_w * moe_aux, {"ce": ce, "moe_aux": moe_aux}

@@ -354,7 +354,8 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.launch.specs', 'repro_torch.launch.roofline', "
         "'repro_torch.launch.report', 'repro_torch.launch.mesh', "
         "'repro_torch.distributed.sharding', "
-        "'repro_torch.distributed.actspec')))\n")
+        "'repro_torch.distributed.actspec', "
+        "'repro_torch.distributed.spmd')))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)

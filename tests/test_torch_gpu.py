@@ -988,14 +988,19 @@ def test_decode_kernel_at_32k_slots_matches_plain(cuda):
 
 def test_dryrun_on_the_card_machine(cuda):
     """launch/dryrun.py runs on meta wherever the card is: one combo at
-    one H100 and at the 16x16 mesh."""
+    one H100 and at the 16x16 mesh, whose collectives it counts on a fake
+    group (none on one card)."""
+    from repro_torch.distributed import spmd
     from repro_torch.launch import dryrun
     recs = {mesh: dryrun.dryrun_one("qwen3-1.7b", "decode_32k", mesh=mesh,
                                     batch=4, verbose=False)
             for mesh in ("1xH100", "16x16")}
     for rec in recs.values():
         assert rec["ok"], rec.get("error")
-        assert rec["collectives"] is None and rec["roofline"]["flops"] > 0
+        assert rec["roofline"]["flops"] > 0
+    assert recs["1xH100"]["collectives"] is None
+    coll = recs["16x16"]["collectives"]
+    assert coll["bytes"] > 0 and set(coll["per_op"]) <= set(spmd.COLLECTIVES)
     one = recs["1xH100"]["memory"]["argument_bytes"]
     assert recs["16x16"]["memory"]["argument_bytes"] < one
     assert recs["1xH100"]["fits_80gb"] and one > 15e9     # the 15 GB cache

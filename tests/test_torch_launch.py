@@ -430,7 +430,11 @@ def test_dryrun_whisper_decode_equals_the_jax_counts(jax_rules):
     jcfg = j_shape_for(j_get_config("whisper-base"), J_SHAPES["decode_32k"])
     assert rec["roofline"]["model_flops"] == \
         jrl.model_flops(jcfg, J_SHAPES["decode_32k"])
-    assert rec["collectives"] is None and rec["chips"] == 256
+    coll = rec["collectives"]
+    assert coll["bytes"] > 0 and coll["count"] > 0 and rec["chips"] == 256
+    assert set(coll["per_op"]) <= set(jrl.COLLECTIVES)
+    assert coll["bytes"] == sum(coll["per_op"].values())
+    assert rec["roofline"]["collective_bytes"] == coll["bytes"]
     mesh = MESHES["16x16"]()
     jr = jax_rules(mesh, jcfg, "baseline")
     want = _jax_inputs("whisper-base", "decode_32k")
@@ -449,6 +453,43 @@ def test_dryrun_whisper_decode_equals_the_jax_counts(jax_rules):
     assert rec["memory"]["argument_bytes"] == total
     assert rec["fits_80gb"] is True
     assert rec["counted"]["flops"] > 0 and rec["counted"]["bytes"] > 0
+
+
+@pytest.mark.parametrize("arch,shape,policy", [
+    ("qwen3-1.7b", "train_4k", "baseline"),
+    ("qwen3-1.7b", "prefill_32k", "baseline"),
+    ("qwen3-1.7b", "decode_32k", "baseline"),
+    ("qwen3-1.7b", "long_500k", "baseline"),
+    ("olmoe-1b-7b", "train_4k", "opt")])
+def test_dryrun_counts_collectives_at_16x16(arch, shape, policy,
+                                             monkeypatch):
+    """Each entry runs on DTensors over a fake group of 256 ranks and
+    counts its collectives under the reference's op names; the opt
+    policy's moe train entry takes the expert-parallel dispatch there,
+    whose combine all-reduces once a layer."""
+    from repro_torch.models import moe as tmoe
+    calls = []
+    inner = tmoe.moe_forward_expert_parallel
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return inner(*a, **kw)
+    monkeypatch.setattr(tmoe, "moe_forward_expert_parallel", spy)
+    rec = dryrun.dryrun_one(arch, shape, mesh="16x16", policy=policy,
+                            verbose=False)
+    assert rec["ok"], rec.get("error")
+    coll = rec["collectives"]
+    assert coll["bytes"] > 0 and set(coll["per_op"]) <= set(jrl.COLLECTIVES)
+    assert coll["count"] == sum(coll["per_op_count"].values())
+    ro = rec["roofline"]
+    assert ro["collective_s"] == pytest.approx(
+        coll["bytes"] / (256 * rl.ICI_BW))
+    if policy == "opt":
+        L = dryrun.get_config(arch).n_layers
+        assert len(calls) >= L                   # forward and recompute
+        assert coll["per_op_count"]["all-reduce"] >= L
+    else:
+        assert not calls
 
 
 def test_dryrun_on_one_card_keeps_every_leaf_whole():
