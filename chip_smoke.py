@@ -27,7 +27,10 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    tokens; both cross-attentions at Sq = 1 as decode runs them);
    for the decode kernel ragged Sk, a ring-buffer kv_pos with -1 holes,
    windows, hymba's GQA 5 at hd 64 with its window crossed, olmoe's,
-   llama4-scout's, whisper's and llama-3.2-vision's decode steps; for the two recurrent scans T = 1, a prime
+   llama4-scout's, whisper's and llama-3.2-vision's decode steps, and
+   with its log-sum-exp (``return_lse``) at two ranks' shards of a
+   sequence-sharded cache (o and lse, a row with no valid slot, o equal
+   to the launch without the lse); for the two recurrent scans T = 1, a prime
    T, a T that is not a multiple of 32, a nonzero input state and decays
    far past the clamp (in one chunk, and over four 64-step chunks with a
    ragged tail), for the WKV scan also T = 64 and 65 and head dims 16 and
@@ -170,7 +173,14 @@ there is no card or no ``src/repro_torch`` beside it. Phases, in order:
    checks the four collectives on CUDA tensors. float32 with TF32 off:
    ``prefill`` of a 2 x 512 batch into a 1,024-slot cache (the full
    logits held against one process's, atol 5e-5, rtol 1e-3) and 8
-   greedy ``decode_step``s (token for token); the loss and every
+   greedy ``decode_step``s (token for token); then long_500k's decode at
+   batch 1: a 4,608-token prompt prefilled in one process into the
+   4,096-slot ring (it wraps), the cache split by the rules over
+   ``data``, 8 greedy steps on the ranks, each rank's softmax over its
+   slots merged with the others' (``spmd.merge_softmax``): tokens equal
+   to one process's, fp32 logits at the same tolerance, every step's
+   collectives equal to the fake group's count of one step, each step's
+   bytes and ms, the merge's share and the wall printed; the loss and every
    gradient leaf at 2 of 28 layers against each rank's own one-process
    run (relative L2 1e-3). bfloat16: the prefill entry counted (every
    rank's collectives by op, bytes and counts, equal to the dry-run's
@@ -242,8 +252,8 @@ kernels' record are the sums over the main paths: the serve waves and
 the float32 decode runs (single-pool and disaggregated) of each model
 (both dispatches' waves for the moe models), the ep phase's bf16
 forward and fp32 loss with its backward on every rank, the spmd phase's
-fp32 prefill and greedy steps, fp32 loss with its backward and counted
-bf16 prefill on every rank, the multimodal
+fp32 prefill and greedy steps, fp32 loss with its backward, counted
+bf16 prefill and long_500k decode steps on every rank, the multimodal
 phase's
 float32 waves and decode streams and its whisper train steps,
 the float32 server loop and its disaggregated streams, the float32
@@ -482,6 +492,7 @@ def kernel_phase(device) -> dict:
                             LSE_ATOL, 0.0)
                 worst["flash_attention_lse"][(dname, label)] = e
     worst["decode_attention"] = decode_kernel_cases(device, gen)
+    worst["decode_attention"].update(decode_lse_cases(device, gen))
     worst.update(scan_kernel_cases(device, gen))
     worst.update(bwd_kernel_cases(device, gen))
     return worst
@@ -553,6 +564,63 @@ def decode_kernel_cases(device, gen) -> dict:
                              f"{(B, Sk, H, KV, hd)} window {window}", got,
                              want, dname)
             worst[(dname, label)] = e
+    return worst
+
+
+# row 3 with its log-sum-exp, as a rank runs it on its slots of a
+# sequence-sharded cache (``spmd.merged_cache_shards``): (label, B, Sk,
+# H, KV, hd, the first slot's position, q_pos); the slots hold
+# consecutive positions from the first, and a row whose q_pos is below
+# them has no valid slot here (o 0, lse -inf). The kernels phase checks
+# these q_pos; the timing phase puts every row at the largest, as in a
+# decode step, where every row sees every slot of the shard
+DECODE_LSE_CASES = [
+    ("long_500k's 4,096-slot ring, a rank's 2,048 slots on the card", 1,
+     2048, 16, 8, 128, 2048, [4607]),
+    ("opt decode_32k at 16x16, a rank's 2,048 of 32,768 slots", 8, 2048,
+     16, 8, 128, 30720, [32767] * 6 + [31000, 30000]),
+]
+
+
+def decode_lse_inputs(gen, dtype, device, B, Sk, H, KV, hd, first, q_pos):
+    import torch
+    q = rand(gen, (B, 1, H, hd), dtype, device)
+    k = rand(gen, (B, Sk, KV, hd), dtype, device)
+    v = rand(gen, (B, Sk, KV, hd), dtype, device)
+    kv_pos = (first + torch.arange(Sk, dtype=torch.int32))[None].repeat(B, 1)
+    return (q, k, v, torch.tensor(q_pos, dtype=torch.int32, device=device),
+            kv_pos.to(device))
+
+
+def decode_lse_cases(device, gen) -> dict:
+    """Row 3 with ``return_lse`` at ``DECODE_LSE_CASES`` in both dtypes:
+    o as ``check_kernel`` holds it, the lse within ``LSE_ATOL`` where
+    finite and -inf exactly where the plain version's is; o equal, bit
+    for bit, to the launch without the lse."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    worst = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for label, B, Sk, H, KV, hd, first, q_pos in DECODE_LSE_CASES:
+            args = decode_lse_inputs(gen, dtype, device, B, Sk, H, KV, hd,
+                                     first, q_pos)
+            o, lse = da.decode_attention(*args, return_lse=True)
+            o2, lse2 = da.decode_attention_plain(*args, return_lse=True)
+            plain_o = da.decode_attention(*args)
+            torch.cuda.synchronize()
+            tag = f"decode_attention return_lse {dname} {label} " \
+                f"{(B, Sk, H, KV, hd)}"
+            worst[(dname, f"{label}, return_lse")] = check_kernel(
+                f"{tag} o", o, o2, dname)
+            empty = torch.isneginf(lse2)
+            if not torch.equal(torch.isneginf(lse), empty):
+                fail(f"{tag}: lse is -inf at {torch.isneginf(lse).sum()} "
+                     f"(row, head)s, the plain version at {empty.sum()}")
+            check_close(f"{tag} lse ({int(empty.sum())} -inf)", lse[~empty],
+                        lse2[~empty], LSE_ATOL, 0.0)
+            if not torch.equal(o, plain_o):
+                fail(f"{tag}: o differs from the launch without the lse")
     return worst
 
 
@@ -836,6 +904,7 @@ def timing_phase(device) -> dict:
         out[f"flash_attention_lse {case[0]}"] = time_cross_decode(
             device, gen, case)
     out["decode_attention"] = time_decode(device, gen)
+    out.update(time_decode_lse(device, gen))
     out.update(time_scans(device, gen))
     out.update(time_bwd(device, gen))
     return out
@@ -1056,6 +1125,60 @@ def time_decode(device, gen) -> dict:
         print(f"    {split_text(r['split'])}")
         out[label] = r
     return out["qwen3 decode"]
+
+
+def time_decode_lse(device, gen) -> dict:
+    """Row 3 with ``return_lse`` at ``DECODE_LSE_CASES``' shapes (bf16),
+    every row at the case's largest q_pos (no masked row: a step's rows
+    all see the whole shard), L2 cold as ``time_decode``: beside the
+    same launch without the lse, its plain version and SDPA with the (B,
+    H, 1, Sk) mask (SDPA returns no lse). The bound counts the lse's B H
+    fp32 values written too."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels.ref import _mask
+
+    out = {}
+    for label, B, Sk, H, KV, hd, first, q_pos in DECODE_LSE_CASES:
+        copies = [decode_lse_inputs(gen, torch.bfloat16, device, B, Sk, H,
+                                    KV, hd, first, [max(q_pos)] * B)
+                  for _ in range(8 if B > 1 else 16)]
+        q, k, v, qp, kp = copies[0]
+        mask = _mask(qp[:, None], kp, causal=True, window=0)
+        pairs = int(mask.sum().item()) * H
+        nbytes = (2 * q.numel() + 2 * k.numel()) * 2 + qp.numel() * 4 \
+            + kp.numel() * 4 + B * H * 4
+        flops = 4.0 * hd * pairs
+        bms, by = bound(nbytes, flops, H100_BF16_FLOPS)
+        lib = [(c[0].transpose(1, 2), c[1].transpose(1, 2),
+                c[2].transpose(1, 2),
+                _mask(c[3][:, None], c[4], causal=True,
+                      window=0)[:, None].expand(B, H, 1, Sk))
+               for c in copies]
+        ms, host_ms = time_ms(rotating(
+            lambda *a: da.decode_attention(*a, return_lse=True), copies))
+        r = {"ms": ms, "host_ms": host_ms,
+             "no_lse_ms": time_ms(rotating(da.decode_attention, copies))[0],
+             "plain_ms": time_ms(rotating(
+                 lambda *a: da.decode_attention_plain(*a, return_lse=True),
+                 copies))[0],
+             "library_ms": time_ms(rotating(
+                 lambda qt, kt, vt, m: F.scaled_dot_product_attention(
+                     qt, kt, vt, attn_mask=m, enable_gqa=True), lib))[0],
+             "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+             "flops": flops, "shape": (B, Sk, H, KV, hd)}
+        print(f"  decode_attention return_lse bf16 {label} {r['shape']}, "
+              f"every row at q_pos {max(q_pos)}: kernel {ms:.4f} ms (host "
+              f"{host_ms:.4f} ms per call), "
+              f"without the lse {r['no_lse_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library (SDPA, boolean mask, no "
+              f"lse) {r['library_ms']:.4f} ms, {ms / r['library_ms']:.2f}x "
+              f"SDPA; bound {bms:.4f} ms ({by}: {nbytes} B, {flops:.3e} "
+              f"FLOP over {pairs} valid (head, slot) pairs), "
+              f"{100 * bms / ms:.1f}% of it; L2 cold; device times")
+        out[f"decode_attention return_lse {label}"] = r
+    return out
 
 
 # T of the scans' timed calls: the main paths (the record's rows) and
@@ -2058,6 +2181,11 @@ SPMD_CACHE = 1024             # decode cache slots
 SPMD_NEW = 8                  # greedy decode steps after the prompt
 SPMD_TRAIN_LAYERS = 2         # the train check's depth, of 28
 SPMD_SEED = 13
+# long_500k's decode at batch 1: a prompt past the 4,096-slot ring, so
+# the ring has wrapped, then greedy steps against the cache sharded over
+# ``data`` (``spmd.attention_shards`` merges the ranks' softmaxes)
+SPMD_RING_PROMPT = 4608
+SPMD_RING_NEW = 8
 SPMD_TIMEOUT_S = 400
 SPMD_DIR = os.path.join(HERE, "build", "spmd")
 
@@ -2111,6 +2239,72 @@ def spmd_serve(params, cfg, toks):
     return logits, torch.stack(out, 1)
 
 
+def spmd_ring_config(cfg):
+    """``cfg`` under long_500k's override: its 4,096-slot decode ring."""
+    from repro_torch.configs import SHAPES, shape_for
+    return shape_for(cfg, SHAPES["long_500k"])
+
+
+def spmd_ring_count(cfg32, ms) -> dict:
+    """The dry-run's count of one fp32 decode step of long_500k's entry
+    (batch 1 against the 4,096-slot ring) on a fake group of ``ms``'s
+    ranks under the baseline rules: ``launch/dryrun.py``'s sharded pass
+    on the inputs of ``input_specs``, made float32 as the ranks run."""
+    import torch
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.sharding import ShardingRules
+    from repro_torch.launch.dryrun import count_collectives
+    from repro_torch.launch.specs import entry_fn, input_specs
+    shape = SHAPES["long_500k"]
+    specs = input_specs(SPMD_ARCH, shape)
+
+    def f32(tree):
+        if isinstance(tree, dict):
+            return {k: f32(v) for k, v in tree.items()}
+        return tree.float() if tree.is_floating_point() else tree
+    p, cache, tok = f32(specs["params"]), f32(specs["cache"]), \
+        specs["tokens"]
+    rules = ShardingRules(ms)
+    with torch.no_grad():
+        return count_collectives(
+            entry_fn(spmd_ring_config(cfg32), shape),
+            [(p, rules.params_specs(p)), (cache, rules.cache_specs(cache)),
+             (tok, rules.batch_specs(tok))], ms, rules, shape, "baseline")
+
+
+def spmd_ring_decode(params, cfg32, device, path) -> tuple:
+    """One process: prefill a seeded ``SPMD_RING_PROMPT``-token prompt
+    into long_500k's ring (it wraps), save the cache and the next token
+    to ``path`` for the ranks, then ``SPMD_RING_NEW`` greedy steps: ->
+    (the (1, 1 + SPMD_RING_NEW) tokens, each step's fp32 logits, each
+    step's wall ms)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.decode import decode_step, prefill
+    cfg = spmd_ring_config(cfg32)
+    rs = np.random.RandomState(SPMD_SEED + 1)
+    toks = torch.from_numpy(rs.randint(0, cfg.vocab_size, (
+        1, SPMD_RING_PROMPT)).astype(np.int32)).to(device)
+    logits, cache = prefill(params, cfg, toks)
+    t = logits[:, -1].argmax(-1).to(torch.int32)
+    del logits
+    if cache["k"].shape[2] >= SPMD_RING_PROMPT:
+        fail(f"spmd: the ring ({cache['k'].shape[2]} slots) did not wrap")
+    torch.save({"cache": {k: v.cpu() for k, v in cache.items()},
+                "t": t.cpu()}, path)
+    out, lgs, walls = [t], [], []
+    for _ in range(SPMD_RING_NEW):
+        ep_sync(device)
+        w = time.perf_counter()
+        lg, cache = decode_step(params, cfg, cache, t[:, None])
+        ep_sync(device)
+        walls.append((time.perf_counter() - w) * 1e3)
+        t = lg[:, 0].argmax(-1).to(torch.int32)
+        out.append(t)
+        lgs.append(lg[:, 0].float().cpu())
+    return torch.stack(out, 1).cpu(), torch.stack(lgs), walls
+
+
 def spmd_gloo_check(device) -> dict:
     """Each of the four collectives of the dry-run's count through gloo
     on tensors on ``device`` (c10d calls), values checked: a rank that
@@ -2144,6 +2338,84 @@ def spmd_gloo_check(device) -> dict:
     return res
 
 
+def spmd_ring_rank(rank, P, cfg32, device, dm, rules, sharded, held,
+                   out_dir) -> dict:
+    """A rank's fp32 decode against long_500k's ring as the rules place
+    it (batch 1: the sequence over ``data``, the heads over ``model``),
+    from the one-process cache ``spmd_ring_decode`` saved: each step
+    counted (``CollectiveCounter``) and logged (each collective's bytes
+    and CUDA-event ms), the collectives inside ``spmd.merge_softmax``
+    marked; rank 0 saves the tokens and each step's logits. The first
+    call of row 3 (with its lse, on the rank's slots) is held against its
+    plain version."""
+    import torch
+    from repro_torch.distributed import spmd
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    from repro_torch.models.decode import decode_step
+    ring = torch.load(os.path.join(out_dir, "ring.pt"), map_location=device)
+    C = spmd.distribute_tree(ring["cache"], rules.cache_specs(ring["cache"]),
+                             dm)
+    t = spmd.distribute_tree(ring["t"], rules.batch_specs(ring["t"]), dm)
+    cfg = spmd_ring_config(cfg32)
+    log, spans, steps, dec = [], [], [], {}
+    merge = spmd.merge_softmax
+
+    def merge_logged(*a, **kw):
+        n0 = len(log)
+        o = merge(*a, **kw)
+        spans.append((n0, len(log)))
+        return o
+    spmd.merge_softmax = merge_logged
+    new, lgs = [t], []
+    try:
+        with torch.no_grad(), sharded(log, act=None), \
+                first_call(ops, "decode_attention", dec):
+            reset_launches()
+            for _ in range(SPMD_RING_NEW):
+                ep_sync(device)
+                n0, m0, w = len(log), len(spans), time.perf_counter()
+                with spmd.CollectiveCounter() as cc:
+                    lg, C = decode_step(P, cfg, C, t[:, None])
+                ep_sync(device)
+                wall = time.perf_counter() - w
+                steps.append({"collectives": cc.record(), "wall_ms":
+                              wall * 1e3, "log": (n0, len(log)),
+                              "merge": spans[m0:]})
+                lg = spmd.whole_dim(lg[:, 0], -1)
+                t = lg.argmax(-1).to(torch.int32)
+                new.append(t)
+                lgs.append(lg.full_tensor().float().cpu())
+            ep_sync(device)
+            launches = read_launches()
+            new = torch.stack([x.full_tensor() for x in new], 1).cpu()
+    finally:
+        spmd.merge_softmax = merge
+    timed = [(b, ev[0].elapsed_time(ev[1])) for _, b, ev, _ in log]
+    for st in steps:
+        a, b = st.pop("log")
+        st["bytes_logged"] = sum(x[0] for x in timed[a:b])
+        st["ms"] = sum(x[1] for x in timed[a:b])
+        mg = [i for lo, hi in st.pop("merge") for i in range(lo, hi)]
+        st["merge_bytes"] = sum(timed[i][0] for i in mg)
+        st["merge_ms"] = sum(timed[i][1] for i in mg)
+    ql, kl, vl, qp, kp = dec["args"]
+    o2, lse2 = da.decode_attention_plain(ql, kl, vl, qp, kp, **dec["kw"])
+    held("decode_attention", dec["out"][0], o2, "long_500k decode")
+    finite = ~torch.isinf(lse2)
+    if not torch.equal(finite, ~torch.isinf(dec["out"][1])):
+        raise RuntimeError(f"rank {rank}: row 3's lse is -inf elsewhere "
+                           "than its plain version's")
+    check_close(f"rank {rank} decode_attention lse on its ring slots",
+                dec["out"][1][finite], lse2[finite], LSE_ATOL, 0.0)
+    if rank == 0:
+        torch.save({"new": new, "logits": torch.stack(lgs)},
+                   os.path.join(out_dir, "ring_fp32.pt"))
+    return {"ring_steps": steps, "launches_ring": launches,
+            "ring_shards": [list(ql.shape), list(kl.shape)],
+            "ring_lse_kw": sorted(dec["kw"])}
+
+
 def spmd_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
     """One of the ``n`` ranks of ``spmd_phase``: a cuda ``DeviceMesh``
     (data 2, model 2) over the gloo group, the functional collectives
@@ -2154,9 +2426,10 @@ def spmd_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
     (rank 0 saves the logits and tokens); the fp32 loss and gradients at
     ``SPMD_TRAIN_LAYERS`` layers against this rank's own one-process run;
     the bf16 prefill entry counted (collectives, launches), then timed.
-    The first call of rows 2, 3, 4 and 5 on each path is held against
-    its plain version on the same local shards. Writes
-    ``rank{rank}.json``."""
+    After the fp32 serve, the same placed weights decode long_500k's
+    wrapped ring (``spmd_ring_rank``). The first call of rows 2, 3, 4
+    and 5 on each path is held against its plain version on the same
+    local shards. Writes ``rank{rank}.json``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
@@ -2184,7 +2457,7 @@ def spmd_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
            actspec.UNCONSTRAINED)
 
     @contextlib.contextmanager
-    def sharded(log=None):
+    def sharded(log=None, act=act):
         with contextlib.ExitStack() as st:
             if device.type == "cuda":
                 st.enter_context(spmd.gloo_cuda_collectives(log))
@@ -2229,7 +2502,11 @@ def spmd_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
     if rank == 0:
         torch.save({"logits": logits.cpu(), "new": new.cpu()},
                    os.path.join(out_dir, "fp32.pt"))
-    del params, P, logits, new, fwd, dec, q, k, v
+    del params, logits, new, fwd, dec, q, k, v
+    free_device()
+    rep.update(spmd_ring_rank(rank, P, cfg32, device, dm, rules, sharded,
+                              held, out_dir))
+    del P
     free_device()
     dist.barrier()
 
@@ -2299,6 +2576,47 @@ def spmd_rank(rank, n, cfg, cfg32, device_type, out_dir) -> None:
         json.dump(rep, f)
 
 
+def spmd_ring_report(reps, want_new, want_logits, one_walls, coll, L,
+                     device) -> None:
+    """The ranks' long_500k decode against one process's: tokens
+    exactly, fp32 logits at the serving tolerance; each rank's every
+    step's counted collectives equal to the fake group's count, op by
+    op; each step's bytes and ms, the merge's share and the wall beside
+    one process's step printed."""
+    import torch
+    got = torch.load(os.path.join(SPMD_DIR, "ring_fp32.pt"))
+    if not torch.equal(got["new"], want_new):
+        fail(f"spmd long_500k: greedy tokens {got['new'].tolist()} differ "
+             f"from one process's {want_new.tolist()}")
+    check_close(f"spmd long_500k decode fp32 logits {tuple(want_logits.shape)}"
+                " against one process", got["logits"], want_logits,
+                SERVE_ATOL, SERVE_RTOL)
+    print(f"  spmd long_500k decode: {SPMD_RING_PROMPT}-token prompt into "
+          f"the {L}-layer 4,096-slot ring (wrapped), {SPMD_RING_NEW} steps "
+          f"as DTensors, tokens equal to one process's: "
+          f"{got['new'].tolist()}; one process's step "
+          + ", ".join(f"{w:.1f}" for w in one_walls) + " ms")
+    for rep in reps:
+        r = rep["rank"]
+        for i, st in enumerate(rep["ring_steps"]):
+            c = st["collectives"]
+            if c["per_op"] != coll["per_op"] or \
+                    c["per_op_count"] != coll["per_op_count"]:
+                fail(f"spmd rank {r} long_500k step {i}: counted "
+                     f"collectives {c} differ from the dry-run's {coll}")
+        ops_ = rep["ring_steps"][0]["collectives"]["per_op_count"]
+        print(f"  rank {r} long_500k: row 3 on q/k shards "
+              f"{rep['ring_shards']} ({rep['ring_lse_kw']}); every step's "
+              f"collectives {ops_} equal to the dry-run's; per step (wall "
+              f"ms, collectives: counted B, logged result B, device ms; the "
+              f"merge: logged B, device ms): " + "; ".join(
+                  f"{st['wall_ms']:.1f}, {st['collectives']['bytes']:.0f}, "
+                  f"{st['bytes_logged']}, {st['ms']:.2f}; {st['merge_bytes']}"
+                  f", {st['merge_ms']:.2f}" for st in rep["ring_steps"]))
+    if device.type == "cuda":
+        print(f"  spmd long_500k figures on: {smi_line()}")
+
+
 def spmd_phase(device) -> tuple:
     """qwen3-1.7b at its published widths through every entry as
     DTensors placed by the baseline sharding rules over ``SPMD_RANKS``
@@ -2307,9 +2625,15 @@ def spmd_phase(device) -> tuple:
     tokens (exactly), the fp32 loss and gradients at
     ``SPMD_TRAIN_LAYERS`` layers (on each rank), the bf16 logits
     (``check_scaled``); each rank's counted collectives against the
-    dry-run's fake-group count of the same entry, op by op. Returns
-    (the launch counts of the three main paths summed over the ranks,
-    the first calls' errors by kernel)."""
+    dry-run's fake-group count of the same entry, op by op. Then
+    long_500k's decode at batch 1: a prompt past the 4,096-slot ring
+    prefilled in one process, the cache split by the rules over
+    ``data``, ``SPMD_RING_NEW`` greedy steps on the ranks, each rank's
+    softmax over its slots merged by ``spmd.merge_softmax`` (tokens
+    exactly, fp32 logits at the serving tolerance, every step's
+    collectives equal to the fake group's count; ``spmd_ring_report``).
+    Returns (the launch counts of the four main paths summed over the
+    ranks, the first calls' errors by kernel)."""
     import shutil
 
     import torch
@@ -2335,10 +2659,18 @@ def spmd_phase(device) -> tuple:
           f"({time.perf_counter() - t0:.1f} s): {coll['count']} "
           f"collectives, {coll['bytes'] / 2**20:.2f} MiB a device; "
           f"{coll['per_op']}")
+    t0 = time.perf_counter()
+    ring_coll = spmd_ring_count(cfg32, ms)
+    print(f"  dry-run of one fp32 long_500k decode step on the fake group "
+          f"({time.perf_counter() - t0:.1f} s): {ring_coll['count']} "
+          f"collectives, {ring_coll['bytes']:.0f} B a device; "
+          f"{ring_coll['per_op']}")
     toks, _ = (t.to(device) for t in spmd_tokens(cfg))
     params = init_params(cfg32, seed=SPMD_SEED, device=device)
     with torch.no_grad():
         want_logits, want_new = spmd_serve(params, cfg32, toks)
+        ring_new, ring_logits, ring_walls = spmd_ring_decode(
+            params, cfg32, device, os.path.join(SPMD_DIR, "ring.pt"))
     want_logits, want_new = want_logits.cpu(), want_new.cpu()
     del params
     free_device()
@@ -2380,13 +2712,17 @@ def spmd_phase(device) -> tuple:
                  "one process", torch.load(os.path.join(SPMD_DIR, "bf16.pt")),
                  want16, TOL["bfloat16"], 1)
     L = cfg.n_layers
+    spmd_ring_report(reps, ring_new, ring_logits, ring_walls, ring_coll, L,
+                     device)
     want_launch = {
         "launches_serve": {"flash_attention_lse": L,
                            "decode_attention": L * SPMD_NEW},
         "launches_train": {"flash_attention_lse": 2 * SPMD_TRAIN_LAYERS,
                            "flash_attention_bwd_dq": SPMD_TRAIN_LAYERS,
                            "flash_attention_bwd_dkv": SPMD_TRAIN_LAYERS},
-        "launches_bf16": {"flash_attention_lse": L}}
+        "launches_bf16": {"flash_attention_lse": L},
+        "launches_ring": {"decode_attention": L * SPMD_RING_NEW,
+                          "flash_attention_lse": 0}}
     for rep in reps:
         r = rep["rank"]
         for key, want in want_launch.items():
@@ -2427,7 +2763,8 @@ def spmd_phase(device) -> tuple:
               "not NVLink or NCCL)")
     runs = [{k: sum(rep[key].get(k, 0) for rep in reps)
              for k in reps[0][key]}
-            for key in ("launches_serve", "launches_train", "launches_bf16")]
+            for key in ("launches_serve", "launches_train", "launches_bf16",
+                        "launches_ring")]
     worst = {}
     for rep in reps:
         for name, cases in rep["worst"].items():
@@ -4475,7 +4812,8 @@ def main() -> int:
     print(f"  launches per path (serve, decode, server, remote, hybrid "
           f"serve, hybrid decode, ssm serve, olmoe serve, olmoe decode, "
           f"llama4 serve, ep bf16 forward, ep fp32 loss, spmd fp32 serve, "
-          f"spmd fp32 train, spmd bf16 prefill, whisper decode, "
+          f"spmd fp32 train, spmd bf16 prefill, spmd long_500k decode, "
+          f"whisper decode, "
           f"whisper serve, vision decode, vision serve, whisper fp32 "
           f"train, whisper bf16 train, fp32 train, bf16 train, launch "
           f"prefill_32k, decode_32k, long_500k, train_4k, then each "

@@ -17,6 +17,12 @@ op's name. One rank's bytes are one device's bytes. An eager run
 dispatches every layer and microbatch, so there are no loop trips to
 correct.
 
+A decode cache whose sequence dim is split over ranks (batch 1 over the
+batch axes; under ``kv_seq_shard`` over ``model``) stays where it lies:
+each rank runs the decode kernel on its slots with the log-sum-exp, and
+:func:`merge_softmax` all-reduces the ranks' (B, H) maxima and weighted
+(B, H, hd + 1) sums, where GSPMD reduces the same partial softmaxes.
+
 On a card, gloo takes the four collectives on CUDA tensors through its
 c10d calls, but the functional all-gather that DTensor calls
 (``_c10d_functional.all_gather_into_tensor``) kills the process (torch
@@ -475,9 +481,11 @@ def attention_shards(kernel, q, k, v, *extra):
     of leading dim B, such as decode's positions), returning the
     DTensor of q's shape and layout. The batch splits over the batch
     dims it divides and the heads by :func:`head_layout`; every other
-    dim (a sequence-sharded cache) is gathered first. Autograd passes
-    through: in "slice", a rank's k and v gradient covers its KV heads
-    only, so it is marked ``Partial`` over ``model`` and summed there."""
+    dim (a prefill's sequence-sharded k and v) is gathered first; a
+    decode cache split so takes :func:`merged_cache_shards`. Autograd
+    passes through: in "slice", a rank's k and v gradient covers its KV
+    heads only, so it is marked ``Partial`` over ``model`` and summed
+    there."""
     from torch.distributed.tensor import Partial
     mesh = next(t for t in (q, k, v) if is_dtensor(t)).device_mesh
     q, k, v = (as_dtensor(t, mesh) for t in (q, k, v))
@@ -491,10 +499,7 @@ def attention_shards(kernel, q, k, v, *extra):
     if heads == "slice":
         gp = list(pkv)
         gp[m] = Partial()
-        n = mesh.size(m)
-        r = mesh.get_local_rank(m)
-        g, hq = H // KV, H // n
-        lo, hi = (r * hq) // g, ((r + 1) * hq - 1) // g + 1
+        lo, hi = _kv_slice(mesh, H, KV)
         kl = local_shard(k, mesh, pkv, gp)[:, :, lo:hi]
         vl = local_shard(v, mesh, pkv, gp)[:, :, lo:hi]
     else:
@@ -502,6 +507,110 @@ def attention_shards(kernel, q, k, v, *extra):
     rows = layout(mesh, bd, {})
     ex = [local_shard(as_dtensor(e, mesh), mesh, rows) for e in extra]
     return from_shards(kernel(ql, kl, vl, *ex), mesh, pq, q)
+
+
+def _kv_slice(mesh, H: int, KV: int) -> tuple:
+    """The KV heads [lo, hi) that this rank's q heads read in "slice"."""
+    m = _model_dim(mesh)
+    r, g, hq = mesh.get_local_rank(m), H // KV, H // mesh.size(m)
+    return (r * hq) // g, ((r + 1) * hq - 1) // g + 1
+
+
+def seq_dims(x) -> list:
+    """The mesh dims that split ``x``'s dim 1 (a cache's sequence), in
+    mesh order: none for a plain tensor."""
+    from torch.distributed.tensor import Shard
+    return [m for m, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == 1] if is_dtensor(x) else []
+
+
+def merge_states(o: torch.Tensor, lse: torch.Tensor, dtype, amax,
+                 total) -> torch.Tensor:
+    """One decode output from its shards (flash-decoding's merge): o
+    (..., B, H, hd), each shard's output normalised over its own slots,
+    and lse (..., B, H) fp32, each shard's log-sum-exp, where ``amax``
+    and ``total`` reduce a term over the shards -> (B, 1, H, hd) in
+    ``dtype``: sum_s e^(lse_s - M) o_s / sum_s e^(lse_s - M), M = max_s
+    lse_s, in fp32. A row whose shards are all -inf (no valid slot
+    anywhere) gives 0, as the kernel and its plain version do."""
+    top = amax(lse)
+    top = torch.where(top == float("-inf"), torch.zeros_like(top), top)
+    w = torch.exp(lse - top)[..., None]
+    state = total(torch.cat([w * o.float(), w], -1))
+    num, den = state[..., :-1], state[..., -1:]
+    den = torch.where(den == 0, torch.ones_like(den), den)
+    return (num / den)[:, None].to(dtype)
+
+
+def merge_softmax(o: torch.Tensor, lse: torch.Tensor, dtype, mesh, place,
+                  dims) -> torch.Tensor:
+    """:func:`merge_states` of this rank's shard, o (B, H, hd) and lse
+    (B, H), laid out as ``place`` (dims of (B, H)), with the ranks' over
+    the mesh dims ``dims``: a (B, H) max, then a (B, H, hd + 1) sum
+    all-reduced, in place of a gather of every rank's state."""
+    return merge_states(
+        o, lse, dtype, lambda t: _all_reduced(t, mesh, place, dims, "max"),
+        lambda t: _all_reduced(t, mesh, place, dims, "sum"))
+
+
+def _all_reduced(t: torch.Tensor, mesh, place, dims, op: str):
+    """``t``, this rank's term laid out as ``place``, reduced by ``op``
+    over the mesh dims ``dims`` (a DTensor redistribution: counted by
+    :class:`CollectiveCounter`, routed by :func:`gloo_cuda_collectives`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    part = DTensor.from_local(t, mesh, [
+        Partial(op) if d in dims else p for d, p in enumerate(place)],
+        run_check=False)
+    return part.redistribute(mesh, [
+        Replicate() if d in dims else p for d, p in enumerate(place)]) \
+        .to_local()
+
+
+def merged_cache_shards(kernel, q, k, v, q_pos, kv_pos):
+    """``kernel(q, k, v, q_pos, kv_pos)`` -> (o, lse), the decode kernel
+    with its log-sum-exp, against DTensors k, v whose sequence dim (1)
+    is split over the mesh dims ``S`` (:func:`seq_dims`): the layout the
+    sharding rules give a batch-1 cache (over the batch axes) and, under
+    ``kv_seq_shard``, one whose KV heads do not divide ``model``. q is
+    made whole over ``S``; k, v and kv_pos keep (or are cut to) this
+    rank's slots; the kernel returns each rank's output and log-sum-exp
+    over its slots, and :func:`merge_softmax` all-reduces their max and
+    weighted sums over ``S``, so every rank holds the whole softmax. The batch splits as in
+    :func:`attention_shards`; the heads too, unless ``model`` is among
+    ``S``, where every rank takes every head of its slots. Raises where
+    the cache cannot be merged in place: v split otherwise than k, or a
+    mesh dim splitting both the batch and the sequence."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = k.device_mesh
+    S = seq_dims(k)
+    q, v = as_dtensor(q, mesh), as_dtensor(v, mesh)
+    B, H, KV = q.shape[0], q.shape[2], k.shape[2]
+    bd = batch_dims(mesh, B)
+    if seq_dims(v) != S or set(bd) & set(S):
+        raise ValueError(
+            f"decode cannot merge the cache's shards in place: k "
+            f"{k.placements}, v {v.placements}, batch dims {bd}")
+    m = _model_dim(mesh)
+    heads = "whole" if m is None or m in S else head_layout(mesh, H, KV)
+    hs = {m: 2} if heads in ("split", "slice") else {}
+    seq = {d: 1 for d in S}
+    pq = layout(mesh, bd, hs)
+    pkv = layout(mesh, bd, {**seq, **({m: 2} if heads == "split" else {})})
+    ql = local_shard(q, mesh, pq)
+    kl, vl = local_shard(k, mesh, pkv), local_shard(v, mesh, pkv)
+    if heads == "slice":
+        lo, hi = _kv_slice(mesh, H, KV)
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    qp = local_shard(as_dtensor(q_pos, mesh), mesh, layout(mesh, bd, {}))
+    kp = local_shard(as_dtensor(kv_pos, mesh), mesh, layout(mesh, bd, seq))
+    o, lse = kernel(ql, kl, vl, qp, kp)
+    place = [Replicate()] * mesh.ndim           # of (B, H) and (B, H, .)
+    for d in bd:
+        place[d] = Shard(0)
+    for d in hs:
+        place[d] = Shard(1)
+    out = merge_softmax(o[:, 0], lse, q.dtype, mesh, place, S)
+    return from_shards(out, mesh, pq, q)
 
 
 def scan_shards(kernel, seq, per_head, rows, state, head_dims):

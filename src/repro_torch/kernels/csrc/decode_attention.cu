@@ -54,7 +54,13 @@
 //   The wrapper allocates the ticket and partial buffers once per device
 //   and grows them; the tickets assume one launch in flight at a time,
 //   that is, one stream at a time. With one split the block writes the
-//   output itself.
+//   output itself;
+// * where the caller passes an lse buffer, the thread that writes column
+//   0 of a head's output also writes its log-sum-exp, m + log l from the
+//   merged state (-inf where l = 0). A cache whose sequence is sharded
+//   over ranks then merges the ranks' outputs with all-reduces of B H
+//   (hd + 2) values (distributed/spmd.py::merge_softmax) instead of
+//   gathering the cache. Without the buffer the launch is as it was.
 //
 // The split length is fixed, so which positions a block, a warp and a
 // lane handle depends on neither B nor Sk: a row's result is the same,
@@ -89,6 +95,7 @@ struct Params {
   const int* q_pos;      // (B,)
   const int* kv_pos;     // (B, Sk), contiguous along Sk
   void* o;
+  float* lse;            // (B, H) fp32, or null: each row's log-sum-exp
   float* part_acc;       // (B, KV, n_split, G, hd); unused with one split
   float* part_ml;        // (B, KV, n_split, G, 2): m, l
   int* ticket;           // (B, KV), zero between launches
@@ -350,6 +357,8 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_kernel(Params p) {
       const float l = s_l[h];
       T* o = static_cast<T*>(p.o) + b * p.o_sb + (h0 + h) * p.o_sh;
       o[d] = from_f<T>(a / (l == 0.f ? 1.f : l));
+      if (p.lse != nullptr && d == 0)
+        p.lse[b * p.H + h0 + h] = l == 0.f ? -INFINITY : s_m[h] + logf(l);
     }
     return;
   }
@@ -406,6 +415,8 @@ __global__ void __launch_bounds__(NT, 1) decode_attn_kernel(Params p) {
     }
     T* o = static_cast<T*>(p.o) + b * p.o_sb + (h0 + h) * p.o_sh;
     o[d] = from_f<T>(a / (ls == 0.f ? 1.f : ls));
+    if (p.lse != nullptr && d == 0)
+      p.lse[b * p.H + h0 + h] = ls == 0.f ? -INFINITY : mx + logf(ls);
   }
   if (tid == 0) p.ticket[bg] = 0;
 }
@@ -458,13 +469,18 @@ cudaError_t launch_hd(const Params& p, int hd, cudaStream_t stream) {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; q, k, v and o
 // are contiguous along hd, kv_pos along Sk; q, k and v have 16-byte
-// aligned bases and strides of whole 16-byte chunks. n_split must be
+// aligned bases and strides of whole 16-byte chunks. lse, where not null,
+// receives each (row, head)'s log-sum-exp of its scaled, masked scores
+// (B, H contiguous fp32; -inf for a row with no valid slot), so that
+// calls over disjoint pieces of one cache (a cache whose sequence is
+// sharded over ranks) can be merged. n_split must be
 // ceil(Sk / 64); with n_split > 1, part_acc holds B KV n_split G hd fp32,
 // part_ml 2 B KV n_split G fp32, and ticket B KV int32 zeros (the kernel
 // leaves them zero). Returns the launch's cudaError_t (0 = launched).
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* q_pos,
-    const int* kv_pos, void* o, float* part_acc, float* part_ml, int* ticket,
+    const int* kv_pos, void* o, float* lse, float* part_acc, float* part_ml,
+    int* ticket,
     int B, int Sk, int H, int KV, int hd, int n_split,
     long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -476,7 +492,7 @@ extern "C" int decode_attention_fwd(
       (n_split > 1 && (part_acc == nullptr || part_ml == nullptr ||
                        ticket == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, q_pos, kv_pos, o, part_acc, part_ml, ticket,
+  Params p{q, k, v, q_pos, kv_pos, o, lse, part_acc, part_ml, ticket,
            B, Sk, H, KV, n_split, q_sb, q_sh, k_sb, k_ss, k_sh,
            v_sb, v_ss, v_sh, kvp_sb, o_sb, o_sh, scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -16,8 +16,10 @@ writing a partial softmax state to fp32 scratch; the last block of each
 int32 ticket. The scratch and the tickets are allocated here once per
 device (:func:`scratch`) and grown when a larger batch, kv head count,
 split count or head dim comes; no call allocates anything else but its
-output. The tickets assume one launch in flight at a time, that is, one
-stream at a time. The split count depends on ``Sk`` alone, never on the
+output (and, with ``return_lse``, the (B, H) log-sum-exp with which the
+shards of a sequence-sharded cache merge: ``spmd.merge_softmax``). The
+tickets assume one launch in flight at a time, that is, one stream at a
+time. The split count depends on ``Sk`` alone, never on the
 batch, so a row's result does not depend on its batch
 (``csrc/decode_attention.cu`` says why that matters).
 """
@@ -49,9 +51,10 @@ def reset_launches() -> None:
 
 def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                            kv_pos: Tensor, *, window: int = 0,
-                           scale: Optional[float] = None) -> Tensor:
+                           scale: Optional[float] = None,
+                           return_lse: bool = False):
     return attend_cache_plain(q, k, v, q_pos, kv_pos, window=window,
-                              scale=scale)
+                              scale=scale, return_lse=return_lse)
 
 
 # device -> (partial sums and (m, l) fp32, tickets int32), grown on demand
@@ -66,7 +69,7 @@ def scratch(device: torch.device, B: int, KV: int, G: int, hd: int,
                          B * KV)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 11
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
@@ -127,13 +130,23 @@ def _check(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, kv_pos: Tensor,
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                      kv_pos: Tensor, *, window: int = 0,
-                     scale: Optional[float] = None) -> Tensor:
+                     scale: Optional[float] = None,
+                     return_lse: bool = False):
     """q (B,1,H,hd); k/v (B,Sk,KV,hd); q_pos (B,) int32; kv_pos (B,Sk)
-    int32 (-1 = unwritten slot) -> (B,1,H,hd) in q's dtype."""
+    int32 (-1 = unwritten slot) -> (B,1,H,hd) in q's dtype; with
+    ``return_lse`` also each (row, head)'s log-sum-exp of its scaled,
+    masked scores, (B, H) fp32, -inf for a row with no valid slot. An
+    empty cache (``Sk == 0``: a rank's share of a sequence-sharded cache
+    can be empty) launches nothing and gives o = 0, lse = -inf."""
     if _on_cpu(q):
         return decode_attention_plain(q, k, v, q_pos, kv_pos, window=window,
-                                      scale=scale)
+                                      scale=scale, return_lse=return_lse)
     _no_backward("decode_attention", q, k, v)
+    if k.dim() == 4 and k.shape[1] == 0 and q.dim() == 4:
+        o = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+        lse = torch.full((q.shape[0], q.shape[2]), float("-inf"),
+                         device=q.device)
+        return (o, lse) if return_lse else o
     _check(q, k, v, q_pos, kv_pos, window)
     B, _, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -141,12 +154,15 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     n_split = -(-Sk // SPLIT)
     fn = _fn()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     part, ticket = scratch(q.device, B, KV, H // KV, hd, n_split)
     ml_ptr = part.data_ptr() + 4 * B * n_split * H * hd   # after the sums
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-                 kv_pos.data_ptr(), o.data_ptr(), part.data_ptr(),
+                 kv_pos.data_ptr(), o.data_ptr(),
+                 None if lse is None else lse.data_ptr(), part.data_ptr(),
                  ml_ptr, ticket.data_ptr(),
                  B, Sk, H, KV, hd, n_split,
                  q.stride(0), q.stride(2),
@@ -158,4 +174,4 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
         raise RuntimeError(f"decode_attention_fwd launch failed: CUDA error "
                            f"{err}")
     count_launch(LAUNCHES, "decode_attention")
-    return o
+    return (o, lse) if return_lse else o

@@ -85,7 +85,16 @@ def attend_cache(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                  kv_pos: Tensor, *, window: int = 0,
                  scale: Optional[float] = None) -> Tensor:
     """Single-token decode attention against a (possibly ring-buffer)
-    cache. q (B,1,H,hd), k/v (B,Sk,KV,hd), q_pos (B,), kv_pos (B,Sk)."""
+    cache. q (B,1,H,hd), k/v (B,Sk,KV,hd), q_pos (B,), kv_pos (B,Sk).
+    A DTensor cache whose sequence is split over ranks stays in place:
+    each rank runs the kernel on its slots with the log-sum-exp, and the
+    ranks' softmaxes merge (``spmd.merged_cache_shards``)."""
+    if spmd.seq_dims(k):
+        return spmd.merged_cache_shards(
+            lambda a, b, c, qp, kp: decode_attention(
+                a, b, c, qp, kp, window=window, scale=scale,
+                return_lse=True),
+            q, k, v, q_pos, kv_pos)
     if spmd.is_dtensor(q) or spmd.is_dtensor(k):
         return spmd.attention_shards(
             lambda a, b, c, qp, kp: attend_cache(a, b, c, qp, kp,

@@ -113,13 +113,29 @@ def ref_attention(q: Tensor, k: Tensor, v: Tensor, *,
 
 def attend_cache_plain(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
                        kv_pos: Tensor, *, window: int = 0,
-                       scale: Optional[float] = None) -> Tensor:
+                       scale: Optional[float] = None,
+                       return_lse: bool = False):
     """One query token per row against a (possibly ring-buffer) cache:
     q (B,1,H,hd), k/v (B,Sk,KV,hd), q_pos (B,), kv_pos (B,Sk) with -1 for
     unwritten slots. The plain version of the decode kernel
-    (``kernels/decode_attention.py``); a row with no valid slot gives 0."""
-    return ref_attention(q, k, v, q_pos=q_pos[:, None], kv_pos=kv_pos,
-                         causal=True, window=window, scale=scale)
+    (``kernels/decode_attention.py``); a row with no valid slot gives 0.
+    ``return_lse`` also returns each row's log-sum-exp of its scaled,
+    masked scores, (B, H) fp32, and -inf for a row with no valid slot
+    (an empty cache, ``Sk == 0``, included)."""
+    if not return_lse:
+        return ref_attention(q, k, v, q_pos=q_pos[:, None], kv_pos=kv_pos,
+                             causal=True, window=window, scale=scale)
+    if k.shape[1] == 0:
+        return torch.zeros_like(q), torch.full(
+            (q.shape[0], q.shape[2]), float("-inf"), dtype=_acc_dtype(q),
+            device=q.device)
+    o, lse = ref_attention(q, k, v, q_pos=q_pos[:, None], kv_pos=kv_pos,
+                           causal=True, window=window, scale=scale,
+                           return_lse=True)
+    valid = _mask(q_pos[:, None], kv_pos, causal=True,
+                  window=window).any(-1)                       # (B, 1)
+    return o, torch.where(valid, lse[..., 0],
+                          torch.full_like(lse[..., 0], float("-inf")))
 
 
 def chunked_attention(q: Tensor, k: Tensor, v: Tensor, *,

@@ -290,6 +290,73 @@ def test_decode_kernel_merge_does_not_depend_on_arrival_order(cuda, dtype):
     assert not ticket.any()
 
 
+def _assert_scaled(got, want, tol, roll_dim):
+    """``chip_smoke.check_scaled``: ``atol`` = ``tol[0]`` x max |want|;
+    the same limits refuse zeros and ``want`` rolled along ``roll_dim``."""
+    atol = tol[0] * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=tol[1])
+    for bad in (torch.zeros_like(want), want.roll(1, roll_dim)):
+        assert not torch.allclose(bad.float(), want.float(), atol=atol,
+                                  rtol=tol[1])
+
+
+# row 3 with its log-sum-exp on one rank's slots of a sequence-sharded
+# cache: B, Sk, H, KV, hd, the first slot's position, q_pos (a row whose
+# q_pos is below the first slot has no valid slot: o 0, lse -inf)
+DECODE_LSE_CASES = [
+    (1, 2048, 16, 8, 128, 2048, [4607]),      # long_500k's ring on the card
+    (8, 2048, 16, 8, 128, 30720,              # opt decode_32k at 16x16
+     [32767] * 6 + [31000, 30000]),
+    (3, 40, 4, 2, 32, 100, [139, 120, 99]),   # one split, a masked row
+]
+LSE_ATOL = 1e-4                               # fp32 in both versions
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_LSE_CASES)
+def test_decode_kernel_lse_matches_plain_version(cuda, dtype, case):
+    """``return_lse``: o as the plain version's (bf16 scaled to max
+    |want|, ``chip_smoke.check_scaled``), equal bit for bit to the
+    launch without the lse; the lse within 1e-4 where finite and -inf
+    exactly where the plain version's is."""
+    B, Sk, H, KV, hd, first, q_pos = case
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g).to(device=cuda, dtype=dtype)
+               for s in ((B, 1, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd)))
+    qp = torch.tensor(q_pos, dtype=torch.int32, device=cuda)
+    kp = (first + torch.arange(Sk, dtype=torch.int32, device=cuda))[None] \
+        .repeat(B, 1)
+    o, lse = da.decode_attention(q, k, v, qp, kp, return_lse=True)
+    want, want_lse = da.decode_attention_plain(q, k, v, qp, kp,
+                                               return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    if dtype == torch.float32:
+        _assert_kernel_close(o, want, dtype)
+    else:
+        _assert_scaled(o, want, TOL[dtype], 2)
+    assert torch.equal(o, da.decode_attention(q, k, v, qp, kp))
+    empty = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert empty.any() == any(p < first for p in q_pos)
+    torch.testing.assert_close(lse[~empty], want_lse[~empty], atol=LSE_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_empty_shard_launches_nothing(cuda, dtype):
+    """A rank with no slots of a sequence-sharded cache (DTensor's uneven
+    chunks): o 0 and lse -inf, with no launch."""
+    q = torch.randn(2, 1, 4, 64, device=cuda).to(dtype)
+    k = torch.zeros(2, 0, 2, 64, device=cuda, dtype=dtype)
+    qp = torch.tensor([5, 9], dtype=torch.int32, device=cuda)
+    kp = torch.zeros(2, 0, dtype=torch.int32, device=cuda)
+    before = da.LAUNCHES["decode_attention"]
+    o, lse = da.decode_attention(q, k, k, qp, kp, return_lse=True)
+    assert da.LAUNCHES["decode_attention"] == before
+    assert o.dtype == dtype and not o.any() and torch.isneginf(lse).all()
+
+
 def test_decode_wrapper_counts_launches_and_refuses(cuda):
     q, k, v, qp, kp = _decode_case(cuda, torch.bfloat16, 2, 70, 4, 2, 64,
                                    [69, 30], False)

@@ -8,6 +8,9 @@ package's own kernel tests run them. Tolerances: float32 everywhere,
 bound: only the summation order differs) and ``1e-5`` for the fp32
 logsumexp.
 """
+import ctypes
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -385,6 +388,121 @@ def test_decode_scratch_is_allocated_once_and_grown(monkeypatch):
     wider = tda.scratch(cpu, 8, 8, 2, 128, 1)     # more rows: new tickets
     assert wider[0] is grown[0] and wider[1].numel() == 64
     assert not wider[1].any()
+
+
+def test_decode_argtypes_match_the_c_entry_point():
+    """The ctypes signature against ``decode_attention_fwd``'s in the
+    source (no compiler here to catch a pointer passed as an int): 10
+    pointers (q, k, v, q_pos, kv_pos, o, lse, the scratch and tickets),
+    then the ints, strides, scale, window, dtype and the stream."""
+    src = open(os.path.join(os.path.dirname(tda.__file__), "csrc",
+                            "decode_attention.cu")).read()
+    sig = src[src.index('extern "C" int decode_attention_fwd('):]
+    params = [a.strip() for a in sig[sig.index("(") + 1:sig.index(")")]
+              .split(",")]
+    kinds = [ctypes.c_void_p if "*" in a else ctypes.c_float
+             if a.startswith("float") else ctypes.c_longlong
+             if a.startswith("long long") else ctypes.c_int for a in params]
+    assert kinds == tda._ARGTYPES
+    assert params[6] == "float* lse"
+
+
+# ------------------------------------- row 3's log-sum-exp and the merge
+
+def _decode_case(seed, B, Sk, H, KV, hd, q_pos, kv_pos):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, 1, H, hd).astype(np.float32),
+            rng.randn(B, Sk, KV, hd).astype(np.float32),
+            rng.randn(B, Sk, KV, hd).astype(np.float32),
+            np.asarray(q_pos, np.int32), np.asarray(kv_pos, np.int32))
+
+
+@pytest.mark.parametrize("window", [0, 7])
+def test_attend_cache_plain_lse_is_the_scores_logsumexp(window):
+    """Row 3's plain version with ``return_lse``: o against the JAX
+    package's ``ref_attention`` on the same numpy inputs, the lse
+    against ``torch.logsumexp`` of the scaled scores over the valid
+    slots (-inf for a row with none: row 2's slots are all unwritten)."""
+    B, Sk, H, KV, hd = 3, 40, 8, 2, 32
+    kv_pos = np.tile(np.arange(Sk), (B, 1))
+    kv_pos[1, 25:] = -1
+    kv_pos[2] = -1
+    q, k, v, qp, kp = _decode_case(3, B, Sk, H, KV, hd, [39, 30, 39],
+                                   kv_pos)
+    o, lse = tref.attend_cache_plain(*_t(q, k, v, qp, kp), window=window,
+                                     return_lse=True)
+    want = jref.ref_attention(q, k, v, q_pos=qp[:, None], kv_pos=kp,
+                              window=window)
+    _close(o, want)
+    s = torch.einsum("bhd,bkhd->bhk", torch.from_numpy(q)[:, 0],
+                     torch.from_numpy(k).repeat_interleave(H // KV, 2)) \
+        * hd ** -0.5
+    kp_t, qp_t = torch.from_numpy(kp), torch.from_numpy(qp)[:, None]
+    ok = (kp_t >= 0) & (kp_t <= qp_t)
+    if window:
+        ok &= qp_t - kp_t < window
+    ref = torch.where(ok[:, None], s, float("-inf")).logsumexp(-1)
+    assert lse.shape == (B, H) and lse.dtype == torch.float32
+    assert torch.isneginf(lse[2]).all() and not o[2].any()
+    _close(lse[:2], ref[:2].numpy(), atol=LSE_ATOL, rtol=0)
+
+
+def _merge_case(case):
+    """(q, k, v, q_pos, kv_pos, window, slot boundaries) of one merge
+    case, 24 slots in 1-4 ranges."""
+    B, Sk, H, KV, hd = 2, 24, 4, 2, 32
+    kv_pos = np.tile(np.arange(Sk), (B, 1))
+    q_pos, window = [23, 17], 0
+    bounds = {"one range": [0, 24], "empty range": [0, 0, 10, 24],
+              "fully masked range": [0, 8, 16, 24],
+              "row masked everywhere": [0, 12, 24],
+              "window": [0, 6, 12, 18, 24]}[case]
+    if case == "fully masked range":
+        kv_pos[:, 16:] = -1
+    elif case == "row masked everywhere":
+        kv_pos[1] = -1
+    elif case == "window":           # a ring that wrapped: slot p % 24
+        q_pos, window = [40, 30], 5
+        kv_pos = np.stack([(np.arange(Sk) - qp - 1) % Sk + qp + 1 - Sk
+                           for qp in q_pos])
+    q, k, v, qp, kp = _decode_case(7, B, Sk, H, KV, hd, q_pos, kv_pos)
+    return q, k, v, qp, kp, window, bounds
+
+
+@pytest.mark.parametrize("case", ["one range", "empty range",
+                                  "fully masked range",
+                                  "row masked everywhere", "window"])
+def test_merged_slot_ranges_equal_the_whole_cache(case):
+    """What a sequence-sharded cache does across ranks, in one process:
+    row 3's plain version with the log-sum-exp on each slot range, then
+    ``spmd.merge_states`` (the arithmetic of ``spmd.merge_softmax``, the
+    ranks' reductions taken over a stacked dim), against the plain
+    version on all the slots.
+    An empty range and a fully masked one merge as nothing; a row with
+    no valid slot anywhere gives 0."""
+    from repro_torch.distributed.spmd import merge_states
+    q, k, v, qp, kp, window, bounds = _merge_case(case)
+    q, k, v, qp, kp = _t(q, k, v, qp, kp)
+    parts = [tref.attend_cache_plain(q, k[:, a:b], v[:, a:b], qp,
+                                     kp[:, a:b], window=window,
+                                     return_lse=True)
+             for a, b in zip(bounds, bounds[1:])]
+    got = merge_states(torch.stack([o[:, 0] for o, _ in parts]),
+                       torch.stack([lse for _, lse in parts]), q.dtype,
+                       lambda t: t.amax(0), lambda t: t.sum(0))
+    want, lse = tref.attend_cache_plain(q, k, v, qp, kp, window=window,
+                                        return_lse=True)
+    assert got.shape == want.shape
+    _close(got, want.numpy())
+    merged = torch.stack([lse for _, lse in parts]).logsumexp(0)
+    assert torch.equal(torch.isneginf(merged), torch.isneginf(lse))
+    _close(merged[~torch.isneginf(lse)], lse[~torch.isneginf(lse)].numpy(),
+           atol=LSE_ATOL, rtol=0)
+    if case == "row masked everywhere":
+        assert not got[1].any() and torch.isneginf(lse[1]).all()
+    if case in ("empty range", "fully masked range"):
+        assert torch.isneginf(parts[{"empty range": 0}.get(case, 2)][1]) \
+            .all()
 
 
 def _ssm_args(dtype=torch.bfloat16, B=1, T=100, H=3, hd=64, N=16):

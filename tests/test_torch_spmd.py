@@ -20,11 +20,13 @@ rtol=1e-3``, as ``tests/test_torch_training.py``; the attention layouts
 ``atol=2e-5, rtol=1e-3`` (its attention tolerance); the closed forms and
 the out-of-place writes exactly.
 """
+import contextlib
 import dataclasses
 import os
 import socket
 import subprocess
 import sys
+from collections import defaultdict
 
 import numpy as np
 import pytest
@@ -49,8 +51,13 @@ LOSS_RTOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 1e-6, 1e-3
 ATTN_ATOL, ATTN_RTOL = 2e-5, 1e-3
 RANK_TIMEOUT_S = 150
+# the batch-1 decode against a sequence-sharded ring: RING slots (split
+# over data, or over data and model), a RING_P-token prompt (the ring
+# has wrapped before the first step), RING_NEW greedy tokens
+RING, RING_P, RING_NEW = 8, 11, 5
 
 JAX_REFERENCE = r"""
+import dataclasses
 import sys
 sys.path.insert(0, "src")
 import jax, numpy as np, jax.numpy as jnp
@@ -59,7 +66,7 @@ from repro.configs import get_smoke_config
 from repro.models import decode as jdec
 from repro.training import lm_loss
 
-B, S, NEW = (int(a) for a in sys.argv[2:5])
+B, S, NEW, RING, RING_P, RING_NEW = (int(a) for a in sys.argv[2:8])
 out = {}
 
 
@@ -71,7 +78,7 @@ def flat(prefix, tree):
             out[f"{prefix}/{k}"] = np.asarray(v)
 
 
-for arch in sys.argv[5:]:
+for arch in sys.argv[8:]:
     cfg = get_smoke_config(arch)
     params = M.init_params(jax.random.PRNGKey(0), cfg)
     flat(f"{arch}/p", params)
@@ -94,6 +101,21 @@ for arch in sys.argv[5:]:
             params)
     out[f"{arch}/loss"] = np.asarray(loss)
     flat(f"{arch}/g", grads)
+
+# a batch-1 greedy decode whose RING-slot ring wraps, at qwen3's smoke
+# width and with one KV head (the kv_seq_shard layout's case)
+from repro.serving.smoke import reference_decode
+ring = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                           sliding_window=RING)
+prompt = np.random.RandomState(9).randint(0, ring.vocab_size, (1, RING_P)) \
+    .astype(np.int32)
+out["ring/tokens"] = prompt
+for name, cfg in (("seq_data", ring),
+                  ("kv_seq_shard", dataclasses.replace(ring, n_kv_heads=1))):
+    params = M.init_params(jax.random.PRNGKey(3), cfg)
+    flat(f"ring/{name}/p", params)
+    out[f"ring/{name}/new"] = np.asarray(
+        reference_decode(cfg, params, prompt[0], RING_NEW), np.int32)[None]
 np.savez(sys.argv[1], **out)
 print("SPMD-REF-OK")
 """
@@ -133,7 +155,7 @@ def _full(t) -> np.ndarray:
 
 # ------------------------------------------------------ the sharded ranks
 
-def _attention_layouts(dm, out: dict) -> None:
+def _attention_layouts(dm, out: dict, B: int) -> None:
     """ops.attention and ops.attend_cache on DTensors (batch over data,
     heads as each layout takes them) against the plain ops on the whole
     tensors, values and (attention) gradients."""
@@ -160,7 +182,7 @@ def _attention_layouts(dm, out: dict) -> None:
             out[f"attn/{name}/d{n_}"] = (_full(a), b.numpy())
         qd = torch.randn(B, 1, H, 16, generator=g)
         kc, vc = (torch.randn(B, 12, KV, 16, generator=g) for _ in range(2))
-        qp = torch.tensor([11, 7, 3, 9], dtype=torch.int32)
+        qp = torch.tensor([11, 7, 3, 9][:B], dtype=torch.int32)
         kp = torch.arange(12, dtype=torch.int32)[None].repeat(B, 1)
         kp[1, 8:] = -1
         got = ops.attend_cache(*(distribute_tensor(t, dm, rows)
@@ -168,6 +190,79 @@ def _attention_layouts(dm, out: dict) -> None:
         out[f"decode/{name}/o"] = (_full(got),
                                    ops.attend_cache(qd, kc, vc, qp,
                                                     kp).numpy())
+
+
+@contextlib.contextmanager
+def counted(module, name: str):
+    """``module.name`` wrapped so that the collectives inside its calls
+    are counted apart; yields {HLO name: bytes} summed over the calls."""
+    inner, sums = getattr(module, name), defaultdict(float)
+
+    def run(*a, **kw):
+        with spmd.CollectiveCounter() as cc:
+            o = inner(*a, **kw)
+        for op, b in cc.per_op.items():
+            sums[op] += b
+        return o
+    setattr(module, name, run)
+    try:
+        yield sums
+    finally:
+        setattr(module, name, inner)
+
+
+def _ring_decode(dm, ref: dict, out: dict) -> None:
+    """qwen3's smoke width at batch 1: the prompt prefilled in one
+    process into a RING-slot ring (it wraps), the cache placed by the
+    rules, then greedy steps as DTensors against the JAX package's
+    ``reference_decode``, tokens exactly. Two layouts: the baseline
+    rules split the ring over ``data`` (heads over ``model``);
+    ``kv_seq_shard`` with one KV head splits it over ``data`` and
+    ``model``. The collectives of ``spmd.merge_softmax`` are counted
+    apart: a (B, H) max and a (B, H, hd + 1) fp32 sum all-reduced over
+    each mesh dim of the sequence, a layer. The rest of
+    ``ops.attend_cache``'s make q whole (its pending sum over ``data``,
+    from the FSDP-split ``wq``, and its heads over ``model``); none
+    moves the cache."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import ops
+    for name, kv_seq in (("seq_data", False), ("kv_seq_shard", True)):
+        cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b"),
+                                  sliding_window=RING,
+                                  n_kv_heads=1 if kv_seq else 2)
+        params = from_jax_params(_nest(ref, f"ring/{name}/p/"))
+        rules = ShardingRules(HOST, kv_seq_shard=kv_seq)
+        logits, cache = tdec.prefill(
+            params, cfg, torch.from_numpy(ref["ring/tokens"]),
+            cache_seq=RING_P + RING_NEW)
+        t = logits[:, -1].argmax(-1).to(torch.int32)
+        P = spmd.distribute_tree(params, rules.params_specs(params), dm)
+        C = spmd.distribute_tree(cache, rules.cache_specs(cache), dm)
+        seq = spmd.seq_dims(C["k"][0])
+        with counted(ops, "attend_cache") as attn, \
+                counted(spmd, "merge_softmax") as merged, \
+                implicit_replication():
+            new = [t]
+            for _ in range(RING_NEW - 1):
+                lg, C = tdec.decode_step(P, cfg, C, t[:, None])
+                t = spmd.whole_dim(lg[:, 0], -1).argmax(-1).to(torch.int32)
+                new.append(t)
+        steps = cfg.n_layers * (RING_NEW - 1)
+        H, hd = cfg.n_heads, cfg.head_dim_
+        heads = H if kv_seq else H // 2         # whole, or split over model
+        merge = steps * len(seq) * 2 * 4 * heads * (hd + 2)
+        q_full = steps * H * hd * 4
+        out[f"ring/{name}/new"] = (np.stack([_full(x) for x in new], 1),
+                                   ref[f"ring/{name}/new"])
+        out[f"ring/{name}/seq_dims"] = (np.array(seq),
+                                        np.array([0, 1] if kv_seq else [0]))
+        out[f"ring/{name}/merge_bytes"] = (
+            np.array([merged["all-reduce"], merged["all-gather"]]),
+            np.array([merge, 0]))
+        out[f"ring/{name}/q_bytes"] = (
+            np.array([attn["all-reduce"] - merged["all-reduce"],
+                      attn["all-gather"]]), np.array([2 * q_full, q_full]))
 
 
 def sharded_rank(rank: int, n: int, ref_path: str, out_dir: str) -> None:
@@ -179,6 +274,7 @@ def sharded_rank(rank: int, n: int, ref_path: str, out_dir: str) -> None:
 
     from repro_torch.training.train_step import loss_and_grads
     ref = dict(np.load(ref_path))
+    B = len(ref[f"{ARCHS[0]}/tokens"])
     dm = to_device_mesh(HOST, "cpu")
     rules = ShardingRules(HOST)
     out: dict = {}
@@ -222,7 +318,8 @@ def sharded_rank(rank: int, n: int, ref_path: str, out_dir: str) -> None:
                 np.array(cfg.n_layers))
         out[f"{arch}/cache_k_is_dtensor"] = (
             np.array(spmd.is_dtensor(cache["k"])), np.array(True))
-    _attention_layouts(dm, out)
+    _attention_layouts(dm, out, B)
+    _ring_decode(dm, ref, out)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
              **{f"{k}|got": v[0] for k, v in out.items()},
              **{f"{k}|want": v[1] for k, v in out.items()})
@@ -235,7 +332,8 @@ def sharded(tmp_path_factory):
     ref = d / "ref.npz"
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     res = subprocess.run([sys.executable, "-c", JAX_REFERENCE, str(ref),
-                          str(B), str(S), str(NEW), *ARCHS], cwd=ROOT,
+                          str(B), str(S), str(NEW), str(RING), str(RING_P),
+                          str(RING_NEW), *ARCHS], cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert "SPMD-REF-OK" in res.stdout, res.stderr[-3000:]
@@ -302,6 +400,63 @@ def test_kernel_entries_on_local_shards_equal_the_plain_ops(sharded, layout):
             got, want = run[key]
             np.testing.assert_allclose(got, want, atol=ATTN_ATOL,
                                        rtol=ATTN_RTOL, err_msg=key)
+
+
+@pytest.mark.parametrize("layout", ("seq_data", "kv_seq_shard"))
+def test_sequence_sharded_ring_decode_equals_jax(sharded, layout):
+    """Batch-1 greedy decode against a wrapped ring split over ``data``
+    (the baseline rules) or over ``data`` and ``model`` (``kv_seq_shard``
+    with one KV head): token for token the JAX package's
+    ``reference_decode``; the merge's all-reduces are the closed form
+    exactly, and the rest of attention's collectives (q made whole) stay
+    within q's size: the cache never moves."""
+    for run in sharded:
+        got, want = run[f"ring/{layout}/new"]
+        assert got.shape == (1, RING_NEW)
+        np.testing.assert_array_equal(got, want)
+        got, want = run[f"ring/{layout}/seq_dims"]
+        np.testing.assert_array_equal(got, want)
+        got, want = run[f"ring/{layout}/merge_bytes"]
+        np.testing.assert_array_equal(got, want)
+        got, most = run[f"ring/{layout}/q_bytes"]
+        assert (got <= most).all(), (got, most)
+
+
+@pytest.mark.parametrize("shape,policy", [("long_500k", "baseline"),
+                                          ("decode_32k", "opt")])
+def test_sequence_sharded_decode_merges_in_place_at_16x16(shape, policy):
+    """The dry-run's decode entries whose cache sequence is split at
+    16x16 (qwen3-1.7b): ``long_500k`` (batch 1, the ring over ``data``)
+    and the ``opt`` policy's ``decode_32k`` (8 KV heads do not divide
+    ``model`` 16: the sequence over ``model``, the int8 cache). The
+    merge's all-reduces equal their closed form, L x (mesh dims of the
+    sequence) x 2 (all-reduce) x 4 B x rows x heads x (hd + 2) (a max
+    of the lse, a sum of the weighted output and its weight), and it
+    gathers nothing; attention's other collectives make q whole (at most
+    q's bf16 bytes gathered, twice that all-reduced); so every all-gather
+    of the entry outside those is not attention's. The whole entry stays
+    under 0.01 GiB a device (long_500k) and 0.5 GiB (decode_32k), where
+    gathering the cache cost 0.4389 and 28.15 GiB."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    cfg = get_config("qwen3-1.7b")
+    L, H, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim_
+    n = 16
+    rows = max(1, SHAPES[shape].global_batch // n)      # batch over data
+    seq_dims, heads = (1, H // n) if shape == "long_500k" else (1, H)
+    with counted(ops, "attend_cache") as attn, \
+            counted(spmd, "merge_softmax") as merged:
+        rec = dryrun.dryrun_one("qwen3-1.7b", shape, mesh="16x16",
+                                policy=policy, verbose=False)
+    assert rec["ok"], rec.get("error")
+    merge = L * seq_dims * 2 * 4 * rows * heads * (hd + 2)
+    assert dict(merged) == {"all-reduce": merge}
+    q_full = L * rows * H * hd * 2
+    assert attn["all-reduce"] - merge <= 2 * q_full
+    assert attn.get("all-gather", 0) <= q_full
+    coll = rec["collectives"]
+    assert coll["bytes"] / 2 ** 30 <= (0.01 if shape == "long_500k" else 0.5)
 
 
 # ------------------------------------------------------ the counter
