@@ -277,6 +277,7 @@ import re
 import subprocess
 import sys
 import threading
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1844,6 +1845,7 @@ def moe_phase(device) -> list:
     runs = []
     t0 = time.perf_counter()
     runs.append(serve_phase(device, "olmoe-1b-7b", seed=4, need=(),
+                            n_layers=MOE_OLMOE_SERVE_LAYERS,
                             dispatches=dispatches,
                             after_fp32=moe_block_check))
     free_device()
@@ -1853,6 +1855,8 @@ def moe_phase(device) -> list:
     t0 = time.perf_counter()
     runs.append(serve_phase(device, "llama4-scout-17b-a16e", seed=5,
                             n_layers=MOE_LLAMA4_LAYERS, need=(),
+                            lo=MOE_LLAMA4_PROMPTS[0],
+                            hi=MOE_LLAMA4_PROMPTS[1],
                             dispatches=dispatches,
                             after_fp32=moe_block_check))
     print(f"  llama4-scout-17b-a16e ({MOE_LLAMA4_LAYERS} of 48 layers): "
@@ -1861,8 +1865,14 @@ def moe_phase(device) -> list:
 
 
 # llama4-scout's depth on the card: 2 of its 48 layers at the published
-# widths are 26 GB in float32 (its 107.8B parameters do not fit)
+# widths are 26 GB in float32 (its 107.8B parameters do not fit); its
+# waves' prompts are 64..256 tokens, since each served token brings
+# 202,048 logits back to the host
 MOE_LLAMA4_LAYERS = 2
+MOE_LLAMA4_PROMPTS = (64, 256)
+# olmoe's serve waves run 8 of its 16 layers (full width); its decode
+# streams here and the ep phase run all 16
+MOE_OLMOE_SERVE_LAYERS = 8
 
 
 # ---------------------------------------------------------------------------
@@ -3044,11 +3054,12 @@ SERVER_PROMPTS = (128, DECODE_CTX - MAX_NEW)
 SERVER_CHECK = 64                              # one-shot results checked
 
 
-def server_loop(cfg, book, params, telemetry) -> dict:
+def server_loop(cfg, book, params, telemetry,
+                seconds=SERVER_SECONDS) -> dict:
     """``run_serve_loop`` over full-width weights: the planner's plan
     through a ``ServingController`` (its window half the traffic's
     seconds, so a client that falls silent departs), client threads for
-    ``SERVER_SECONDS`` with a partition shift halfway, decode streams
+    ``seconds`` with a partition shift halfway, decode streams
     from the last client. Returns the report with the served requests,
     unchecked: the checks' own launches must not count."""
     from repro_torch.core import Fragment
@@ -3056,7 +3067,7 @@ def server_loop(cfg, book, params, telemetry) -> dict:
     frags = [Fragment(cfg.name, p, SERVER_BUDGET_MS, q, client=f"c{i}")
              for i, (p, q) in enumerate(zip(SERVER_POINTS, SERVER_RATES))]
     return run_serve_loop(
-        setup=(cfg, book, params), frags=frags, seconds=SERVER_SECONDS,
+        setup=(cfg, book, params), frags=frags, seconds=seconds,
         seed=0, shift_frac=0.5, control_period_ms=SERVER_PERIOD_MS,
         prompt_lens=SERVER_PROMPTS, decode_max_new=MAX_NEW,
         check_numerics=False, telemetry=telemetry)
@@ -3220,12 +3231,12 @@ def server_phase(device) -> dict:
     del params, rep
     free_device()
 
-    # the same loop in bfloat16, printed only
+    # the same loop in bfloat16, printed only, for half the seconds
     cfg16, book16, params16 = smoke_setup("qwen3-1.7b", full_width=True,
                                           dtype="bfloat16", seq_len=512,
                                           device=device)
     tel = Telemetry(process="serve")
-    rep16 = server_loop(cfg16, book16, params16, tel)
+    rep16 = server_loop(cfg16, book16, params16, tel, SERVER_SECONDS / 2)
     print_server_report(rep16, tel, "bf16 loop")
     check_control(rep16, "bf16 loop")
     dec = rep16.get("decode", {})
@@ -3255,9 +3266,16 @@ def server_phase(device) -> dict:
 # phase 6: pool workers on the card, the fleet, the serving launcher
 # ---------------------------------------------------------------------------
 
-# the executor's clients; the re-aligned plan cuts at the last of them,
-# so its pool survives the replan in its worker
-REMOTE_POINTS = (3, 9, 17)
+# the remote phase runs qwen3-1.7b at full width but 8 of its 28 layers
+# (the server phase runs the same loop at all 28, in process). The
+# executor's clients: the re-aligned plan cuts at the last of them, so
+# its pool survives the replan in its worker. The fleet loops' clients
+# follow SERVER_POINTS' pattern (the last client, at 0, decodes); the
+# printed-only bf16 fleet loop runs a quarter of the fp32 loop's seconds
+REMOTE_LAYERS = 8
+REMOTE_POINTS = (1, 3, 5)
+REMOTE_FLEET_POINTS = (1, 3, 5, 0)
+REMOTE_BF16_SECONDS = SERVER_SECONDS / 4
 REMOTE_FRONTENDS = 2
 CLI_TIMEOUT_S = 300
 
@@ -3272,7 +3290,7 @@ def print_spawns(spawn_log, label) -> None:
               f"init {init_s:.2f} s ({nbytes / 2**30:.2f} GiB of parameters)")
 
 
-def remote_executor_check(cfg, book, params, device) -> dict:
+def remote_executor_check(device) -> dict:
     """``RemoteExecutor`` on the card: one worker per pool of the
     planner's plan, two waves, a re-aligned plan, two more waves; every
     result against the forward. Returns the launches on this path: the
@@ -3281,8 +3299,14 @@ def remote_executor_check(cfg, book, params, device) -> dict:
     import torch
     from repro_torch.core import Fragment, GraftPlanner
     from repro_torch.serving import RemoteExecutor, SocketTransport
-    from repro_torch.serving.smoke import mixed_depth_plan
+    from repro_torch.serving.smoke import mixed_depth_plan, smoke_setup
 
+    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
+                                    n_layers=REMOTE_LAYERS, dtype="float32",
+                                    seq_len=512, device=device)
+    print(f"  executor check: {cfg.name} at {cfg.n_layers} of 28 layers, "
+          f"full width, {cfg.dtype}; clients at {REMOTE_POINTS}, re-aligned "
+          f"at {REMOTE_POINTS[-1]}")
     rng = np.random.RandomState(4)
     frags = [Fragment(cfg.name, p, float(40.0 + 40.0 * rng.rand()), 30.0,
                       client=f"c{i}") for i, p in enumerate(REMOTE_POINTS)]
@@ -3338,22 +3362,152 @@ def remote_executor_check(cfg, book, params, device) -> dict:
              f"workers {workers}, parent {parent}")
     for i, wave in enumerate(waves):
         check_results(cfg, params, wave, f"remote wave {i + 1}")
+    del params
+    free_device()
     return {k: workers[k] + parent[k] for k in workers}
 
 
 def fleet_loop(cfg, book, params, telemetry, seconds) -> dict:
     """The server phase's loop through ``GraftFleet`` front-ends over a
-    ``RemoteExecutor``; returns its report, unchecked."""
+    ``RemoteExecutor``, its clients at ``REMOTE_FLEET_POINTS``; returns
+    its report, unchecked."""
     from repro_torch.core import Fragment
     from repro_torch.serving import run_serve_loop
     frags = [Fragment(cfg.name, p, SERVER_BUDGET_MS, q, client=f"c{i}")
-             for i, (p, q) in enumerate(zip(SERVER_POINTS, SERVER_RATES))]
+             for i, (p, q) in enumerate(zip(REMOTE_FLEET_POINTS,
+                                            SERVER_RATES))]
     return run_serve_loop(
         setup=(cfg, book, params), frags=frags, seconds=seconds,
         seed=0, shift_frac=0.5, control_period_ms=SERVER_PERIOD_MS,
         prompt_lens=SERVER_PROMPTS, decode_max_new=MAX_NEW,
         check_numerics=False, telemetry=telemetry, mode="socket",
         frontends=REMOTE_FRONTENDS, router="weighted", log=indented)
+
+
+# the split-decode check: full width at 4 of 28 layers, one decode pool
+# in a worker, 8 streams of 10 tokens admitted half by each front-end
+SPLIT_LAYERS = 4
+SPLIT_STREAMS = 8
+SPLIT_NEW = 10
+
+
+def fleet_split_decode_check(device) -> None:
+    """Decode streams split across the fleet's front-ends over ONE shared
+    decode pool in a worker process: each front-end admits half of them,
+    either front-end's step advances all of them, and each stream's step
+    events reach its owner through the fleet. After the drain every
+    driver's decode count must equal the pool's reported occupancy, no
+    front-end may still own a stream, and every stream's tokens must
+    equal those a lone ``GraftServer`` over the same worker gives it."""
+    import numpy as np
+    from repro_torch.core import Fragment
+    from repro_torch.serving import (GraftFleet, GraftServer, RemoteExecutor,
+                                     ServeRequest, SocketTransport)
+    from repro_torch.serving.smoke import decode_plan, smoke_setup
+
+    t0 = time.perf_counter()
+    cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
+                                    n_layers=SPLIT_LAYERS, dtype="float32",
+                                    seq_len=512, device=device)
+    frags = [Fragment(cfg.name, 0, SERVER_BUDGET_MS, 30.0, client=f"d{i}")
+             for i in range(REMOTE_FRONTENDS)]
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, int(rng.randint(9, 40)))
+               .astype(np.int32) for _ in range(SPLIT_STREAMS)]
+
+    def run(server, frontend) -> tuple:
+        reqs = [ServeRequest(client=f"d{i % REMOTE_FRONTENDS}", tokens=t,
+                             max_new_tokens=SPLIT_NEW)
+                for i, t in enumerate(prompts)]
+        server.start()
+        try:
+            for i, r in enumerate(reqs):
+                frontend(i).submit(r, 0, SERVER_BUDGET_MS)
+            if not server.join(timeout=300.0):
+                fail(f"split decode: a stream stranded ({server.report()})")
+            return [r.out_tokens for r in reqs], server.report()
+        except BaseException:
+            server.stop(drain=False, timeout=10.0)
+            raise
+
+    with RemoteExecutor(decode_plan(cfg, book, frags, batch=SPLIT_STREAMS),
+                        params, cfg,
+                        SocketTransport(max_frame_bytes=MAX_FRAME_BYTES),
+                        decode_ctx=64, kv_blocks=4 * SPLIT_STREAMS,
+                        kv_block_tokens=16, device=device) as rex:
+        (key,) = rex.pool_specs()
+        fleet = GraftFleet(rex, n_frontends=REMOTE_FRONTENDS, book=book)
+        names = fleet.frontends
+        split, rep = run(fleet, lambda i: fleet.frontend(
+            names[i % len(names)]))
+        drivers = {n: fleet.frontend(n).driver(key) for n in names}
+        # a driver that did not take the last step holds the occupancy
+        # its own last step reported, until its next step reads 0
+        give_up = time.monotonic() + 10.0
+        while True:
+            occupancy = rex.handle(key).stats()["decode_active"]
+            counts = {n: d.decode_active for n, d in drivers.items()}
+            owned = {n: len(d.decode_resident) for n, d in drivers.items()}
+            if set(counts.values()) == {occupancy} and not any(
+                    owned.values()):
+                break
+            if time.monotonic() > give_up:
+                fail(f"split decode: driver counts {counts} against the "
+                     f"pool's occupancy {occupancy}, streams still owned "
+                     f"{owned}")
+            time.sleep(0.05)
+        fleet.stop(drain=False, timeout=10.0)
+        events = fleet.stats["cross_dispatched"]
+        lone = GraftServer(rex, book=book)
+        single, lone_rep = run(lone, lambda i: lone)
+        lone.stop(drain=False, timeout=10.0)
+    served = {n: fe["served"] for n, fe in rep["frontends"].items()}
+    for label, r in (("fleet", rep), ("lone server", lone_rep)):
+        if r["decode_served"] != SPLIT_STREAMS or r["decode_local"] \
+                or r["shed"]:
+            fail(f"split decode, {label}: served {r['decode_served']} of "
+                 f"{SPLIT_STREAMS}, local {r['decode_local']}, shed "
+                 f"{r['shed']}")
+    if set(served.values()) != {SPLIT_STREAMS // REMOTE_FRONTENDS}:
+        fail(f"split decode: streams served per front-end {served}")
+    if not events:
+        fail("split decode: no step event crossed to another front-end")
+    print(f"  split decode ({cfg.n_layers} of 28 layers, full width, fp32; "
+          f"one pool worker): {SPLIT_STREAMS} streams of {SPLIT_NEW} tokens "
+          f"over {REMOTE_FRONTENDS} front-ends {served}; {events} decode "
+          f"events dispatched across front-ends; drained, every driver's "
+          f"count {occupancy} = the pool's occupancy; "
+          f"{time.perf_counter() - t0:.1f} s")
+    for i, (got, want) in enumerate(zip(split, single)):
+        same = got == want
+        print(f"    stream {i} (front-end {names[i % len(names)]}): "
+              f"{'equal' if same else 'DIFFERENT'} to the lone server's "
+              f"{want}")
+        if not same:
+            fail(f"split decode: stream {i} {got} against the lone "
+                 f"server's {want}")
+    del params
+    free_device()
+
+
+def beside(fn, *args):
+    """Run ``fn(*args)`` on a thread; the returned function waits for it
+    and raises what it raised (a ``fail`` included)."""
+    raised = []
+
+    def body():
+        try:
+            fn(*args)
+        except BaseException as e:
+            raised.append(e)
+    t = threading.Thread(target=body, daemon=True, name=fn.__name__)
+    t.start()
+
+    def wait():
+        t.join()
+        if raised:
+            raise raised[0]
+    return wait
 
 
 def print_fleet_report(rep, tel, label) -> None:
@@ -3396,10 +3550,11 @@ def finish_cli(run) -> None:
 
 
 def remote_phase(device) -> dict:
-    """Pool workers on the card under the executor and under the fleet,
-    then the serving launcher; returns the kernels' launch counts over
-    the float32 remote paths (the executor's waves, then the fleet
-    loop), the workers' and this process's."""
+    """Pool workers on the card under the executor (the serving
+    launcher's two modes beside it), under the fleet, and under split
+    decode streams; returns the kernels' launch counts over the float32
+    remote paths (the executor's waves, then the fleet loop), the
+    workers' and this process's."""
     import numpy as np
     import torch
     from repro_torch.core import arch_layer_costs
@@ -3411,14 +3566,29 @@ def remote_phase(device) -> dict:
     from repro_torch.serving.telemetry import Telemetry
 
     t_phase = time.perf_counter()
+    # the launcher's two modes as subprocesses and the split-decode check
+    # on a thread, beside the executor check: each waits mostly on its
+    # workers' spawns and loads, and none of them is timed
+    clis = [start_cli(["--arch", "qwen3-1.7b", "--execute", "socket"]),
+            start_cli(["--serve-loop", "--execute", "socket",
+                       "--serve-seconds", "2", "--clients", "2",
+                       "--frontends", "2"])]
+    split = beside(fleet_split_decode_check, device)
+    launches = remote_executor_check(device)
+    t_check = time.perf_counter() - t_phase
+    for run in clis:
+        finish_cli(run)
+    split()
+    print(f"  executor check: {t_check:.1f} s; with the launcher and the "
+          f"split-decode check beside it {time.perf_counter() - t_phase:.1f}"
+          " s")
     cfg, book, params = smoke_setup("qwen3-1.7b", full_width=True,
-                                    dtype="float32", seq_len=512,
-                                    device=device)
+                                    n_layers=REMOTE_LAYERS, dtype="float32",
+                                    seq_len=512, device=device)
     torch.cuda.synchronize()
-    print(f"  {cfg.name}: {cfg.n_layers} layers, {cfg.dtype}, allow_tf32 "
-          f"{torch.backends.cuda.matmul.allow_tf32}; executor clients at "
-          f"{REMOTE_POINTS}, re-aligned at {REMOTE_POINTS[-1]}")
-    launches = remote_executor_check(cfg, book, params, device)
+    print(f"  {cfg.name}: {cfg.n_layers} of 28 layers, {cfg.dtype}, "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}; fleet "
+          f"clients at {REMOTE_FLEET_POINTS}")
 
     reset_launches()                        # the fleet path starts here
     t0 = time.perf_counter()
@@ -3470,27 +3640,22 @@ def remote_phase(device) -> dict:
     del params, rep
     free_device()
 
-    # the launcher's two modes as subprocesses beside the route smoke
     t0 = time.perf_counter()
-    clis = [start_cli(["--arch", "qwen3-1.7b", "--execute", "socket"]),
-            start_cli(["--serve-loop", "--execute", "socket",
-                       "--serve-seconds", "2", "--clients", "2",
-                       "--frontends", "2"])]
     route = run_route_smoke(device=device, log=indented)
-    for run in clis:
-        finish_cli(run)
     if not (route["numerics_ok"] and route["steals"] >= 1
             and route["shed"] == 0):
         fail(f"route smoke: steals {route['steals']}, shed "
              f"{route['shed']}, numerics {route.get('numerics_error', 'ok')}")
-    print(f"  launcher and route smoke: {time.perf_counter() - t0:.1f} s")
+    print(f"  route smoke: {time.perf_counter() - t0:.1f} s")
 
     # bfloat16, printed only
+    t0 = time.perf_counter()
     cfg16, book16, params16 = smoke_setup("qwen3-1.7b", full_width=True,
+                                          n_layers=REMOTE_LAYERS,
                                           dtype="bfloat16", seq_len=512,
                                           device=device)
     tel = Telemetry(process="serve")
-    rep16 = fleet_loop(cfg16, book16, params16, tel, SERVER_SECONDS)
+    rep16 = fleet_loop(cfg16, book16, params16, tel, REMOTE_BF16_SECONDS)
     print_fleet_report(rep16, tel, "bf16 fleet loop")
     check_control(rep16, "bf16 fleet loop")
     dec = rep16.get("decode", {})
@@ -3505,6 +3670,10 @@ def remote_phase(device) -> dict:
         if req.result is None or not torch.isfinite(req.result.float()).all():
             fail(f"bf16 fleet loop: {req.client} result missing or not "
                  "finite")
+    print(f"  bf16 fleet loop ({cfg16.n_layers} of 28 layers, "
+          f"{REMOTE_BF16_SECONDS:.0f} s of traffic): "
+          f"{time.perf_counter() - t0:.1f} s with spawns, warm-up and drain")
+    t0 = time.perf_counter()
     measured = measure_layer_costs(cfg16, params16, seq_len=128,
                                    batches=(1, 4), reps=3)
     analytic = arch_layer_costs(cfg16, seq_len=128)
@@ -3524,6 +3693,7 @@ def remote_phase(device) -> dict:
           f"{np.mean(a_alpha):.4f}), beta mean {np.mean(beta):.4f} (min "
           f"{np.min(beta):.4f}, max {np.max(beta):.4f}; analytic "
           f"{np.mean(a_beta):.4f})")
+    print(f"  measure_layer_costs: {time.perf_counter() - t0:.1f} s")
     del params16
     free_device()
     print(f"  remote phase: {time.perf_counter() - t_phase:.1f} s")
@@ -4329,14 +4499,15 @@ def stop(proc) -> None:
         proc.wait()
 
 
-def dryrun_sweep() -> None:
+def dryrun_sweep(during=None):
     """``python -m repro_torch.launch.dryrun --arch <a> --shape all
     --mesh 1xH100`` for every arch, one process each, all at once (each
     runs on the meta device: one host core, no device work), waited
-    for: the sweep of ``--arch all`` in a tenth of its time, and it
-    shares the host with no phase that is timed. Prints the report table
-    and each combo's ``fits_80gb``; fails unless every combo was
-    analysed."""
+    for after ``during()`` (the examples phase, which times nothing,
+    runs meanwhile): the sweep of ``--arch all`` in a tenth of its
+    time, sharing the host with no phase that is timed. Prints the
+    report table and each combo's ``fits_80gb``; fails unless every
+    combo was analysed. Returns what ``during()`` returned."""
     import shutil
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch import report
@@ -4344,19 +4515,29 @@ def dryrun_sweep() -> None:
     os.makedirs(DRYRUN_DIR)
     env = dict(os.environ, PYTHONPATH=SRC)
     t = time.perf_counter()
+    # each process's output goes to a file: a pipe nobody reads while
+    # ``during()`` runs would fill and stall it
+    logs = {a: open(os.path.join(DRYRUN_DIR, f"{a}.log"), "w+")
+            for a in ARCH_IDS}
     procs = {a: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
          "--shape", "all", "--mesh", "1xH100", "--out",
          os.path.join(DRYRUN_DIR, f"{a}.jsonl")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        stdout=logs[a], stderr=subprocess.STDOUT, text=True,
         env=env, cwd=HERE) for a in ARCH_IDS}
     try:
-        outs = {a: p.communicate(timeout=max(
-            1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t)))[0]
-            for a, p in procs.items()}
+        result = during() if during is not None else None
+        for p in procs.values():
+            p.wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t)))
     finally:
         for p in procs.values():
             stop(p)
+    outs = {}
+    for a, f in logs.items():
+        f.seek(0)
+        outs[a] = f.read()
+        f.close()
     for a, p in procs.items():
         last = outs[a].strip().splitlines()[-1] if outs[a].strip() else ""
         print(f"  dry-run {a}: {last!r} (exit {p.returncode})")
@@ -4375,6 +4556,7 @@ def dryrun_sweep() -> None:
               f"{r['global_batch']}): {r['fits_80gb']} (args "
               f"{m['argument_bytes'] / 1e9:.2f} GB + temp "
               f"{m['temp_bytes'] / 1e9:.2f} GB)")
+    return result
 
 
 def launch_phase(device) -> tuple:
@@ -4390,10 +4572,10 @@ def launch_phase(device) -> tuple:
     timed on the host clock ended by a synchronize, and profiled (device
     time by kernel group); then its roofline terms on the meta device
     (``launch.dryrun``) at the same batch, and the timed wall's share of
-    the larger one. Then, after the timed entries, the dry-run of every
-    arch and shape on one H100 (``dryrun_sweep``) and every combo's
-    ``fits_80gb``. Returns (each entry's launch counts, the kernel
-    checks' largest errors by kernel)."""
+    the larger one. The dry-run of every arch and shape on one H100
+    and every combo's ``fits_80gb`` (``dryrun_sweep``) follow, beside
+    the examples phase when it runs. Returns (each entry's launch
+    counts, the kernel checks' largest errors by kernel)."""
     import torch
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -4475,7 +4657,6 @@ def launch_phase(device) -> tuple:
               f"{100 * top / wall:.1f}% of the wall")
         del s, args, fn, sc
         free_device()
-    dryrun_sweep()
     return runs, worst
 
 
@@ -4718,13 +4899,15 @@ def main() -> int:
     if not set(phases) <= set(PHASES):
         fail(f"unknown phases {phases}; known: {PHASES}")
     runs = []                           # launch counts of each path
+    took = {}                           # phase -> seconds
 
     @contextlib.contextmanager
     def phase(name):
         print(f"== {name}")
         t = time.perf_counter()
         yield
-        print(f"== {name} took {time.perf_counter() - t:.1f} s")
+        took[name] = round(time.perf_counter() - t, 1)
+        print(f"== {name} took {took[name]:.1f} s")
     if "kernels" in phases:
         with phase("kernels"):
             tensor_core_check(logs)
@@ -4800,10 +4983,17 @@ def main() -> int:
             free_device()
             launch_runs, launch_worst = launch_phase(device)
             runs.extend(launch_runs)
+            if "examples" not in phases:
+                dryrun_sweep()
     if "examples" in phases:
-        with phase("examples"):
+        # the launch phase's dry-run sweep takes the host's cores while
+        # the examples run
+        with phase("examples" + (" and the dry-run sweep"
+                                 if "launch" in phases else "")):
             free_device()
-            runs.extend(examples_phase(device))
+            runs.extend(dryrun_sweep(lambda: examples_phase(device))
+                        if "launch" in phases else examples_phase(device))
+    print(f"  phase seconds: {json.dumps(took)}")
     if phases != PHASES:
         print(f"== partial run ({', '.join(phases)}) done in "
               f"{time.perf_counter() - t_start:.1f} s: no record")

@@ -285,14 +285,15 @@ class MicroBatcher:
                 self._pending_tokens += it.n_tokens
             return stolen
 
-    def n_due(self, now_ms: float) -> int:
+    def n_due(self, now_ms: float, *, want=None) -> int:
         """Queued items whose flush deadline has already passed — work
         that is LATE, as opposed to waiting out its batching window.
         The fleet balancer steals on this, not on raw queue length: a
-        deep queue of far-future flush deadlines is deliberate slack."""
+        deep queue of far-future flush deadlines is deliberate slack.
+        ``want`` filters which items count, as in :meth:`steal`."""
         with self._cond:
-            return sum(1 for flush_ms, _, _ in self._heap
-                       if flush_ms <= now_ms)
+            return sum(1 for flush_ms, _, it in self._heap
+                       if flush_ms <= now_ms and (want is None or want(it)))
 
     def next_flush_ms(self) -> Optional[float]:
         with self._cond:

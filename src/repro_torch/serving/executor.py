@@ -507,7 +507,9 @@ class FragmentInstance:
         self.decode_tokens += 1
         return {"admitted": True, "tok": first, "done": done,
                 "n_shared": n_shared,
-                "tokens": [first] if done else None}
+                "tokens": [first] if done else None,
+                "active": self.decode_active,
+                "free_slots": self.decode_free_slots}
 
     def decode_step_batch(self) -> dict:
         """ONE iteration of the continuous decode batch: every resident

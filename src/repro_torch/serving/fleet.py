@@ -114,6 +114,9 @@ class GraftFleet:
         self.steal_threshold_ms = steal_threshold_ms
         self._forced_unhealthy: set = set()   # set_health(False) marks
         self._imbalance_ticks = 0             # persistence before stealing
+        self._steal_cond = threading.Condition()
+        self._steals_running = 0              # steals between their calls
+        self._steals_ended = 0
 
         self._t0 = time.monotonic()
         self._clock = clock                   # injectable (test determinism)
@@ -338,13 +341,23 @@ class GraftFleet:
                 traceback.print_exc()
 
     def _steal(self, victim: GraftServer, thief: GraftServer,
-               k: Optional[int] = None) -> int:
-        """Move up to ``k`` queued-not-in-flight items (all when None)
-        from ``victim``'s ingest to ``thief``. The extra hop is charged
-        to each stolen request's shed-policy slack by ``accept_stolen``
-        — stealing never silently blows an SLO."""
-        stolen = victim.steal_queued(k)
-        n = thief.accept_stolen(stolen)
+               k: Optional[int] = None, *, decode: bool = True) -> int:
+        """Move up to ``k`` queued-not-in-flight items (all when None;
+        decode requests only when ``decode``) from ``victim``'s ingest to
+        ``thief``. The extra hop is charged to each stolen request's
+        shed-policy slack by ``accept_stolen`` — stealing never silently
+        blows an SLO. Between the two calls a request is in neither
+        front-end's count: :meth:`join` waits while a steal runs."""
+        with self._steal_cond:
+            self._steals_running += 1
+        try:
+            stolen = victim.steal_queued(k, decode=decode)
+            n = thief.accept_stolen(stolen)
+        finally:
+            with self._steal_cond:
+                self._steals_running -= 1
+                self._steals_ended += 1
+                self._steal_cond.notify_all()
         if n:
             self.stats["steals"] += n
             self._m_steals.inc(n)
@@ -394,7 +407,9 @@ class GraftFleet:
         self._imbalance_ticks = 0
         victim = servers[victim_name]
         k = max(victim.n_queued // 2, 1)
-        self._steal(victim, thief, k)
+        # a queued decode request waits for a slot of the decode pool
+        # both front-ends share: moving it cannot start it sooner
+        self._steal(victim, thief, k, decode=False)
         if self.controller is not None and \
                 hasattr(self.controller, "observe_imbalance"):
             total = sum(pressure.values())
@@ -494,15 +509,31 @@ class GraftFleet:
 
     # ------------------------------------------------------------- report
     def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait until every front-end has completed what it was given.
+        A steal moves a request to a front-end this pass may already
+        have found done, so a pass counts only if no steal ran while it
+        did; otherwise it is repeated."""
         deadline = None if timeout is None else time.monotonic() + timeout
-        ok = True
-        with self._fe_lock:
-            servers = list(self._servers.values())
-        for srv in servers:
-            left = None if deadline is None \
+
+        def left() -> Optional[float]:
+            return None if deadline is None \
                 else max(deadline - time.monotonic(), 0.0)
-            ok = srv.join(timeout=left) and ok
-        return ok
+        while True:
+            with self._steal_cond:
+                while self._steals_running:
+                    if left() == 0.0:
+                        return False
+                    self._steal_cond.wait(timeout=left())
+                ended = self._steals_ended
+            with self._fe_lock:
+                servers = list(self._servers.values())
+            for srv in servers:
+                if not srv.join(timeout=left()):
+                    return False
+            with self._steal_cond:
+                if not self._steals_running \
+                        and self._steals_ended == ended:
+                    return True
 
     def mark(self) -> dict:
         """Per-front-end completion-log snapshot (warmup exclusion);

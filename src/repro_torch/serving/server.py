@@ -119,6 +119,10 @@ class _RWLock:
                 self._cond.notify_all()
 
 
+def _one_shot(item: BatchItem) -> bool:
+    return not item.decode
+
+
 @dataclass
 class _InFlight:
     """Server-side state of one accepted request."""
@@ -161,10 +165,16 @@ class PoolDriver(threading.Thread):
         self.busy_until_ms = 0.0     # estimated end of the batch in flight
         self.stop_flag = False
         self.n_batches = 0
-        # continuous-batching decode session (mirror of the pool's slot
-        # occupancy — authoritative counts come back on every step reply)
+        # continuous-batching decode session: the pool's slot occupancy
+        # as the replies to THIS driver's own steps, admits and aborts
+        # gave it. A fleet's shared pool also holds other front-ends'
+        # streams: whichever driver the pool last served a step or admit
+        # holds a count of at least the pool's occupancy, so a resident
+        # stream is always stepped
         self.decode_free = max(spec.batch, 1)
         self.decode_active = 0
+        # the streams this front-end admitted and must complete: ownership
+        # only, never a count (events may reach it on another's thread)
         self.decode_resident: dict[int, str] = {}    # rid -> client
         self.decode_step_ewma: Optional[float] = None
         # fleet mode: another front-end's streams hold the shared decode
@@ -1177,11 +1187,11 @@ class GraftServer:
             # first token existed before the decode pool heard of us
             st.t_first_ms = self.now_ms()
         st.n_gen = 1
+        driver.decode_active = int(r["active"])
+        driver.decode_free = int(r["free_slots"])
         if r.get("done"):
             self._complete_decode(item.rid, st, r["tokens"])
             return
-        driver.decode_active += 1
-        driver.decode_free = max(driver.decode_free - 1, 0)
         driver.decode_resident[item.rid] = item.client
 
     def _prefill_handoff(self, driver: PoolDriver, item: BatchItem,
@@ -1274,12 +1284,16 @@ class GraftServer:
                 st.shed_exempt = True
                 continue
             try:
-                handle.decode_abort(rid)
+                aborted = handle.decode_abort(rid)
             except Exception:
                 traceback.print_exc()
+                aborted = False
+            if aborted:
+                # the pool confirmed it dropped one counted stream; after
+                # a failed abort the next step's reply says what it holds
+                driver.decode_active = max(driver.decode_active - 1, 0)
+                driver.decode_free += 1
             driver.decode_resident.pop(rid, None)
-            driver.decode_active = max(driver.decode_active - 1, 0)
-            driver.decode_free += 1
             self._shed(rid, st, "decode")
 
     def _complete_decode(self, rid: int, st: _InFlight, tokens) -> None:
@@ -1412,8 +1426,10 @@ class GraftServer:
 
     def _accept_decode_event(self, rid: int, ev: dict) -> None:
         """A step event of a stream this front-end admitted: the last
-        one completes it and frees its slot in the driver that holds it
-        (read lock held)."""
+        one completes it and ends this front-end's ownership (read lock
+        held). The driver's occupancy count is left alone: the step that
+        produced the event already left the stream out of its reply, and
+        this driver's own next step, admit or abort resets the count."""
         st = self._inflight.get(rid)
         if st is None:
             return
@@ -1422,7 +1438,6 @@ class GraftServer:
             return
         for drv in list(self._drivers.values()):
             if drv.decode_resident.pop(rid, None) is not None:
-                drv.decode_active = max(drv.decode_active - 1, 0)
                 break
         if ev.get("oom"):
             self._shed(rid, st, "decode")
@@ -1430,14 +1445,16 @@ class GraftServer:
             self._complete_decode(rid, st, ev["tokens"])
 
     # ------------------------------------------------------ work stealing
-    def steal_queued(self, k: Optional[int] = None) -> list:
+    def steal_queued(self, k: Optional[int] = None, *,
+                     decode: bool = True) -> list:
         """Hand up to ``k`` queued-NOT-in-flight items (every eligible
         item when None) to a peer front-end. Taken under the writer lock
         so no driver can pop a batch containing them mid-steal. Decode
         items in the batcher are queued-not-yet-ADMITTED: they hold no
         resident KV anywhere, so they steal exactly like one-shot items
         (admitted streams live in ``decode_resident`` and never re-enter
-        a batcher, so residency can't leave with a steal).
+        a batcher, so residency can't leave with a steal); ``decode``
+        False leaves them queued.
         Returns ``[(BatchItem, _InFlight)]`` pairs; the request leaves
         this front-end's in-flight table and join() accounting entirely
         (the thief's :meth:`accept_stolen` picks both up), so a steal
@@ -1448,7 +1465,8 @@ class GraftServer:
                 room = None if k is None else k - len(stolen)
                 if room is not None and room <= 0:
                     break
-                stolen.extend(drv.batcher.steal(room))
+                stolen.extend(drv.batcher.steal(
+                    room, want=None if decode else _one_shot))
         out = []
         for item in stolen:
             st = self._inflight.pop(item.rid, None)
@@ -1520,16 +1538,18 @@ class GraftServer:
     def steal_pressure_ms(self, now: Optional[float] = None) -> float:
         """Milliseconds of work that is LATE on this front-end: batches
         already pushing (``busy_until_ms``) plus execution of queued
-        items whose flush deadline has passed. Items waiting out a
-        future flush deadline are deliberate batching slack, not
+        one-shot items whose flush deadline has passed. Items waiting out
+        a future flush deadline are deliberate batching slack, not
         pressure — stealing them churns placement without helping
         latency, so the fleet balancer keys its imbalance test on this
-        instead of :meth:`queue_depth_ms`."""
+        instead of :meth:`queue_depth_ms`. Queued decode requests are
+        not pressure either: they wait for a slot of a decode pool every
+        front-end shares, which a thief would wait for too."""
         t = self.now_ms() if now is None else now
         total = 0.0
         for drv in list(self._drivers.values()):
             total += max(drv.busy_until_ms - t, 0.0)
-            due = drv.batcher.n_due(t)
+            due = drv.batcher.n_due(t, want=_one_shot)
             if due:
                 total += (due / max(drv.batcher.max_batch, 1)) \
                     * drv.est_cost_ms()

@@ -18,6 +18,7 @@ the port's (refused before anything changes, the controller reverted,
 the replan applied on a later tick).
 """
 import dataclasses
+import threading
 
 import jax
 import numpy as np
@@ -858,6 +859,229 @@ def test_fleet_decode_streams_split_across_frontends_equal_jax(deep):
     assert rep["decode_local"] == 0 and rep["shed"] == 0
     assert all(fe["served"] == 2 for fe in rep["frontends"].values())
     check_decode_against_jax(jcfg, jp, streams)
+
+
+class _StepGate:
+    """A front-end's handle to the shared decode pool whose decode steps
+    wait for the test's go-ahead, until ``open`` is set."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.arrived = threading.Semaphore(0)
+        self.go = threading.Semaphore(0)
+        self.open = False
+
+    def __getattr__(self, item):
+        return getattr(self.inner, item)
+
+    def decode_step(self):
+        if not self.open:
+            self.arrived.release()
+            self.go.acquire()
+        return self.inner.decode_step()
+
+    def reached(self):
+        """Wait until the driver is at this gate, ready to step."""
+        assert self.arrived.acquire(timeout=60.0), "driver never stepped"
+
+
+def test_fleet_foreign_done_event_after_owners_step_strands_nothing(deep):
+    """The order that stranded a split stream, forced step by step: fe1's
+    step finishes fe0's stream S0, and fe1 holds that done event back
+    while fe0 steps twice (admitting S2 in between) and finishes fe1's
+    stream S1. Only then does S0's event reach fe0. Each driver's count
+    must stay the pool's occupancy as a pool reply last gave it, so fe0
+    still steps S2 to its end; a count lowered by the late event leaves
+    both drivers idle with S2 resident."""
+    from repro_torch.serving.smoke import decode_plan
+    cfg, book, params, jcfg, jp = deep
+    frags = [Fragment(cfg.name, 0, 4000.0, 30.0, client=f"d{i}")
+             for i in range(2)]
+    ex = GraftExecutor(decode_plan(cfg, book, frags, batch=2), params, cfg,
+                       decode_ctx=64, kv_block_tokens=4, device="cpu")
+    (key,) = ex.pool_specs()
+    fleet = GraftFleet(ex, n_frontends=2, book=book, clock=FakeClock(),
+                       steal_threshold_ms=float("inf"))
+    fe0, fe1 = fleet.frontend("fe0"), fleet.frontend("fe1")
+    gates = {}
+    for srv in (fe0, fe1):
+        gates[srv.name] = srv._local_handles[key] = \
+            _StepGate(ex.open_handle(key))
+    held = threading.Event()           # fe1 holds S0's done event
+    let_go = threading.Event()         # fe0 finished S1: release it
+    passed = threading.Event()         # S0's done event reached fe0
+    rng = np.random.RandomState(23)
+    reqs = {}
+
+    def submit(name, srv, max_new):
+        req = ServeRequest(client="d0" if srv is fe0 else "d1",
+                           tokens=rng.randint(0, cfg.vocab_size, int(
+                               rng.randint(6, 20))).astype(np.int32),
+                           max_new_tokens=max_new, tpot_budget_ms=2000.0)
+        reqs[name] = (req, max_new, srv.submit(req, 0, 4000.0))
+
+    def done_rids(results):
+        return {rid for rid, ev in results
+                if isinstance(ev, dict) and ev.get("done")}
+
+    def hold_fe1(results, route=fleet._dispatch):
+        if reqs["S0"][2] in done_rids(results):
+            held.set()
+            assert let_go.wait(60.0)
+            route(results)
+            passed.set()
+        else:
+            route(results)
+
+    def finish_fe0(results, route=fleet._dispatch):
+        route(results)
+        if reqs["S1"][2] in done_rids(results):
+            let_go.set()
+            assert passed.wait(60.0)
+
+    def open_gates():
+        for g in gates.values():
+            g.open = True
+            g.go.release()
+
+    fe1.foreign_router, fe0.foreign_router = hold_fe1, finish_fe0
+    fleet.start()
+    try:
+        submit("S0", fe0, 2)            # done on the first pool step
+        submit("S1", fe1, 4)            # done on the third
+        gates["fe0"].reached()          # S0 admitted
+        gates["fe1"].reached()          # S1 admitted
+        gates["fe1"].go.release()       # step 1, on fe1: S0 done
+        assert held.wait(60.0)
+        submit("S2", fe0, 5)
+        wait_until(lambda: fe0.n_queued == 1, desc="S2 queued on fe0")
+        gates["fe0"].go.release()       # step 2, on fe0: S1 at 3 tokens
+        gates["fe0"].reached()          # S2 admitted
+        gates["fe0"].go.release()       # step 3, on fe0: S1 done
+        assert passed.wait(60.0)
+        open_gates()
+        drivers = [srv.driver(key) for srv in (fe0, fe1)]
+
+        def counts():
+            return [d.decode_active for d in drivers]
+
+        def occupancy():
+            return ex.handle(key).stats()["decode_active"]
+        assert fleet.join(timeout=60.0), \
+            f"S2 stranded: driver counts {counts()}, pool {occupancy()}"
+        rep = fleet.report()
+        wait_until(lambda: counts() == [occupancy()] * 2 == [0, 0],
+                   desc="driver counts at the pool's occupancy")
+        assert not any(d.decode_resident for d in drivers)
+    finally:
+        let_go.set()                    # a failed step frees the drivers,
+        passed.set()                    # or stop() waits on their locks
+        open_gates()
+        fleet.stop(drain=False, timeout=5.0)
+        ex.close()
+    assert rep["decode_served"] == 3
+    assert rep["decode_local"] == 0 and rep["shed"] == 0
+    assert fleet.stats["cross_dispatched"] >= 2
+    check_decode_against_jax(jcfg, jp, [r[:2] for r in reqs.values()])
+
+
+def test_fleet_balancer_leaves_queued_decode_streams_with_their_owner(
+        deep):
+    """Decode requests queued on a loaded front-end wait for a slot of the
+    decode pool both front-ends share, so the balancer's imbalance path
+    leaves them where they are: a thief would wait for the same slots,
+    and the stream would finish on a front-end it was not sent to (a
+    loaded host so broke the split test's count of two served on each
+    front-end). The load is forced: fe0's admits are paused and its
+    admit cost reads one second."""
+    from repro_torch.serving.smoke import decode_plan
+    cfg, book, params, jcfg, jp = deep
+    frags = [Fragment(cfg.name, 0, 4000.0, 30.0, client=f"d{i}")
+             for i in range(2)]
+    ex = GraftExecutor(decode_plan(cfg, book, frags, batch=2), params, cfg,
+                       decode_ctx=64, kv_block_tokens=4, device="cpu")
+    (key,) = ex.pool_specs()
+    fleet = GraftFleet(ex, n_frontends=2, book=book,
+                       clock=FakeClock()).start()
+    fe0 = fleet.frontend("fe0")
+    drv = fe0.driver(key)
+    rng = np.random.RandomState(29)
+    streams = []
+    try:
+        drv.batcher.pause()
+        for _ in range(2):
+            req = ServeRequest(client="d0", tokens=rng.randint(
+                0, cfg.vocab_size, int(rng.randint(6, 20))).astype(np.int32),
+                max_new_tokens=5)
+            fe0.submit(req, 0, 4000.0)
+            streams.append((req, 5))
+        wait_until(lambda: fe0.n_queued == 2, desc="streams queued on fe0")
+        drv.exec_ewma_ms = 1000.0
+        for _ in range(2):              # the imbalance persists two ticks
+            fleet._balance(fleet.now_ms())
+        assert fleet.stats["steals"] == 0 and fe0.n_queued == 2
+        drv.batcher.resume()
+        assert fleet.join(timeout=120.0)
+        rep = fleet.report()
+    finally:
+        drv.batcher.resume()
+        fleet.stop(drain=False, timeout=5.0)
+        ex.close()
+    assert {n: fe["served"] for n, fe in rep["frontends"].items()} \
+        == {"fe0": 2, "fe1": 0}
+    assert rep["decode_local"] == 0 and rep["shed"] == 0
+    check_decode_against_jax(jcfg, jp, streams)
+
+
+def test_fleet_join_waits_for_a_request_stolen_while_it_runs(smoke):
+    """A steal moves a request onto a front-end that ``join`` may already
+    have found done. Forced: fe1's queued request is stolen to fe0 just
+    after ``join`` has passed fe0, both front-ends paused. ``join`` must
+    not return before that request completes (fe0 resumes, and the clock
+    passes its flush deadline, on the next look ``join`` takes at it)."""
+    cfg, book, _, jcfg, jp = smoke
+    frags = _shared_pool_frags(cfg, ["fe0", "fe1"], p=1)
+    plan = mixed_depth_plan(cfg, book, frags, s=1, batch=4)
+    clock = FakeClock()
+    ex, fleet = _fleet(smoke, frags, plan=plan, clock=clock,
+                       steal_threshold_ms=float("inf"))
+    fe0, fe1 = fleet.frontend("fe0"), fleet.frontend("fe1")
+    drivers = [d for srv in (fe0, fe1) for d in srv._drivers.values()]
+    looks = {"fe0": 0, "fe1": 0}
+    joins = {"fe0": fe0.join, "fe1": fe1.join}
+
+    def join_fe0(timeout=None):
+        looks["fe0"] += 1
+        if looks["fe0"] == 2:
+            clock.advance(5000.0)
+            for d in fe0._drivers.values():
+                d.batcher.resume()
+        return joins["fe0"](timeout=timeout)
+
+    def join_fe1(timeout=None):
+        looks["fe1"] += 1
+        if looks["fe1"] == 1:
+            assert fleet._steal(fe1, fe0) == 1
+        return joins["fe1"](timeout=timeout)
+    try:
+        for d in drivers:
+            d.batcher.pause()
+        reqs = _requests(cfg, frags[:1], np.random.RandomState(31),
+                         n_per_client=1)
+        (req, p), = reqs
+        fe1.submit(req, p, 5000.0)
+        wait_until(lambda: fe1.n_queued == 1, desc="request queued on fe1")
+        fe0.join, fe1.join = join_fe0, join_fe1
+        assert fleet.join(timeout=120.0)
+        assert req.result is not None, \
+            "join returned before the stolen request completed"
+        assert looks == {"fe0": 2, "fe1": 2}
+    finally:
+        for d in drivers:
+            d.batcher.resume()
+        fleet.stop(drain=False, timeout=5.0)
+        ex.close()
+    check_against_jax(jcfg, jp, reqs)
 
 
 # ------------------------------------------------------------ fleet faults
