@@ -46,6 +46,7 @@ class BatchItem:
     extras: Optional[dict] = None
     boundary: int = 0                # block boundary the payload sits at
     enqueued_ms: float = 0.0
+    enqueued_ns: int = 0             # the same on the epoch clock (traced)
     hop_charge_ms: float = 0.0       # uplink time this item will serialize
                                      # on the pool's channel (stage 0 only)
     n_tokens: int = 0                # sequence length of the payload (what

@@ -384,14 +384,22 @@ class FragmentInstance:
         return dst
 
     def _solo_prefill(self, rid: int, toks: np.ndarray, n_shared: int):
-        """B=1 prompt processing for one admission: gather the shared
-        prefix KV from the paged arena (keeping at least the LAST prompt
-        token to recompute, so a fully-shared prompt still yields first-
-        token logits), step the remainder, and return the first generated
-        token, the cache row, and the arena-bound suffix KV. A pool that
-        shares no prefix (``_kv_share`` False: hybrid, whose scan state
-        the arena does not hold, and an int8 cache) never gathers: its
-        prompt always runs whole through ``prefill``."""
+        """B=1 prompt processing for one admission: the first generated
+        token, the cache row, and the arena-bound suffix KV on the host
+        (:meth:`_prefill_row`, then :meth:`_suffix_kv`)."""
+        first, c1 = self._prefill_row(rid, toks, n_shared)
+        return (first, c1, *self._suffix_kv(c1, n_shared,
+                                            int(toks.shape[0])))
+
+    def _prefill_row(self, rid: int, toks: np.ndarray, n_shared: int):
+        """Gather the shared prefix KV from the paged arena (keeping at
+        least the LAST prompt token to recompute, so a fully-shared
+        prompt still yields first-token logits), step the remainder, and
+        return the first generated token (read on the host) and the B=1
+        cache row. A pool that shares no prefix (``_kv_share`` False:
+        hybrid, whose scan state the arena does not hold, and an int8
+        cache) never gathers: its prompt always runs whole through
+        ``prefill``."""
         cfg, S, dev = self.cfg, int(toks.shape[0]), self.device
         # prefix positions gathered
         pop = min(n_shared, S - 1) if self._kv_share else 0
@@ -412,12 +420,24 @@ class FragmentInstance:
                 logits, c1 = decode_step(
                     self._params, cfg, c1,
                     torch.tensor([[int(t)]], dtype=torch.int32, device=dev))
-        first = int(torch.argmax(logits[0, -1]))
-        # only the arena-bound suffix positions cross to the host, never
-        # the whole (L, 1, decode_ctx, KV, hd) cache
+        return int(torch.argmax(logits[0, -1])), c1
+
+    @staticmethod
+    def _suffix_kv(c1: dict, n_shared: int, S: int) -> tuple:
+        """The arena-bound suffix KV of a solo cache, on the host: only
+        positions [n_shared, S) cross, never the whole (L, 1, decode_ctx,
+        KV, hd) cache."""
         ks = c1["k"][:, 0, n_shared:S].float().transpose(0, 1).cpu().numpy()
         vs = c1["v"][:, 0, n_shared:S].float().transpose(0, 1).cpu().numpy()
-        return first, c1, ks, vs
+        return ks, vs
+
+    def _phase(self, span: tuple, mark, name: str,
+               args: Optional[dict] = None) -> None:
+        """Close ``mark``, one phase of the traced call ``span`` = (rid,
+        parent sid), as the parent's child."""
+        self.telemetry.end(mark, name, "pool", rid=span[0],
+                           tid=pool_endpoint(self.key), args=args,
+                           parent=span[1])
 
     def prefill_export(self, rid: int, client: str, tokens,
                        sig: tuple) -> dict:
@@ -454,7 +474,8 @@ class FragmentInstance:
                 "kv": encode_kv_blocks(payload)}
 
     def decode_admit(self, rid: int, client: str, tokens, max_new: int,
-                     sig: tuple, handoff: Optional[dict] = None) -> dict:
+                     sig: tuple, handoff: Optional[dict] = None,
+                     span: Optional[tuple] = None) -> dict:
         """Admit one sequence into the continuous decode batch: paged-KV
         admission (with prefix sharing), solo prefill of the prompt, row
         copy into a free batch slot. Produces the FIRST generated token.
@@ -464,7 +485,11 @@ class FragmentInstance:
         :meth:`prefill_export`: its blocks seed this arena's prefix index
         under the exporter's chain keys BEFORE ``begin`` runs, so the
         prompt admits fully shared (only the last position recomputes).
-        A partial import (receiver OOM) just lowers ``n_shared``."""
+        A partial import (receiver OOM) just lowers ``n_shared``.
+
+        ``span`` = (rid, sid) of a traced caller's ``decode/admit`` span:
+        the prefill and the KV's trip to the host arena become its
+        children."""
         if self.draining:
             raise PoolDrainingError(
                 f"pool {self.key} is draining (batch=0): enqueue refused")
@@ -492,8 +517,19 @@ class FragmentInstance:
             n_shared = self.kv.begin(rid, key, toks)
         except KVCacheOOM:
             return {"admitted": False, "reason": "kv_oom"}
-        first, c1, ks, vs = self._solo_prefill(rid, toks, n_shared)
+        if span is not None:
+            mark = self.telemetry.begin()
+        first, c1 = self._prefill_row(rid, toks, n_shared)
+        if span is not None:
+            self._phase(span, mark, "decode/admit/prefill",
+                        {"n_tokens": S, "n_shared": n_shared})
+            mark = self.telemetry.begin()
+        ks, vs = self._suffix_kv(c1, n_shared, S)
         self.kv.write_prompt_kv(rid, ks, vs)
+        if span is not None:
+            self._phase(span, mark, "decode/admit/kv_out",
+                        {"d2h_bytes": ks.nbytes + vs.nbytes,
+                         "n_tokens": S - n_shared})
         done = max_new == 1
         if done:
             self.kv.finish(rid, retain=self._kv_share)
@@ -511,26 +547,47 @@ class FragmentInstance:
                 "active": self.decode_active,
                 "free_slots": self.decode_free_slots}
 
-    def decode_step_batch(self) -> dict:
+    def resident_rids(self) -> list:
+        """The decode streams holding a slot, in slot order."""
+        return [s["rid"] for s in self._slots if s]
+
+    def decode_step_batch(self, span: Optional[tuple] = None) -> dict:
         """ONE iteration of the continuous decode batch: every resident
         sequence advances a token; finished sequences free their KV
         blocks and vacate their slot WITHOUT stalling the rest. Returns
         per-sequence events plus slot occupancy, which says how many
-        admissions fit at this step boundary."""
+        admissions fit at this step boundary.
+
+        ``span`` = (rid, sid) of a traced caller's ``decode/step`` span:
+        the step's phases become its children (``prep``, ``forward``,
+        ``tokens``: the wait for the step's kernels, ``kv_out``,
+        ``arena``)."""
         active = [i for i, s in enumerate(self._slots) if s]
         if not active:
             return {"events": [], "active": 0,
                     "free_slots": len(self._slots)}
+        if span is not None:
+            tel = self.telemetry
+            mark = tel.begin()
         B, dev = len(self._slots), self.device
         toks = np.zeros((B, 1), np.int32)
         for i in active:
             toks[i, 0] = self._slots[i]["last"]
         # a host copy taken before the step: the step advances pos
         pos_before = self._dc["pos"].cpu().numpy().copy()
+        if span is not None:
+            self._phase(span, mark, "decode/step/prep")
+            mark = tel.begin(cpu=True)
         logits, self._dc = self._call_counted(
             decode_step, self._params, self.cfg, self._dc,
             torch.from_numpy(toks).to(dev), shape_key=("decode", B))
+        if span is not None:
+            self._phase(span, mark, "decode/step/forward")
+            mark = tel.begin()
         nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        if span is not None:
+            self._phase(span, mark, "decode/step/tokens")
+            mark = tel.begin()
         # slice on the device first: only the active rows' new slot
         # ((L, n_active, KV, hd), slot == position under can_decode)
         # crosses to the host, never the whole batched cache
@@ -538,6 +595,11 @@ class FragmentInstance:
         at = torch.from_numpy(pos_before[active].astype(np.int64)).to(dev)
         k_new = self._dc["k"][:, rows, at].float().cpu().numpy()
         v_new = self._dc["v"][:, rows, at].float().cpu().numpy()
+        if span is not None:
+            self._phase(span, mark, "decode/step/kv_out",
+                        {"d2h_bytes": k_new.nbytes + v_new.nbytes,
+                         "rows": len(active)})
+            mark = tel.begin()
         events = []
         for j, i in enumerate(active):
             s = self._slots[i]
@@ -566,6 +628,9 @@ class FragmentInstance:
                 self.kv.finish(s["rid"], retain=self._kv_share)
                 self._slots[i] = None
             events.append(ev)
+        if span is not None:
+            self._phase(span, mark, "decode/step/arena",
+                        {"rows": len(active)})
         self.decode_steps += 1
         self.decode_tokens += len(active)
         return {"events": events,
@@ -628,16 +693,20 @@ class PoolService:
         self.inst.submit(req, torch.as_tensor(item["payload"]))
 
     def _flush_reply(self) -> dict:
-        t0 = time.perf_counter()
-        done = self.inst.flush()
-        dur = (time.perf_counter() - t0) * 1e3
+        inst = self.inst
+        if self._traced:
+            mark = inst.telemetry.begin(cpu=True)
+            real0, pad0 = inst.real_tokens, inst.pad_tokens
+        done = inst.flush()
         rids = [req._rid for req, _ in done]
         traced = [r for r in rids if r in self._traced]
         if traced:
             self._traced.difference_update(traced)
-            self.inst.telemetry.span(
-                "exec", "pool", dur, rid=traced[0], tid=self._pool_tid,
-                args={"rids": traced, "n_batch": len(rids)})
+            inst.telemetry.end(
+                mark, "exec", "pool", rid=traced[0], tid=self._pool_tid,
+                args={"rids": traced, "n_batch": len(rids),
+                      "real_tokens": inst.real_tokens - real0,
+                      "pad_tokens": inst.pad_tokens - pad0})
         return {"ok": True,
                 "results": [{"req_id": req._rid, "payload": y}
                             for req, y in done]}
@@ -667,19 +736,22 @@ class PoolService:
             inst.chips = [int(c) for c in msg["chips"]]
             return {"ok": True}
         if op == "prefill":
-            t0 = time.perf_counter()
+            trace = msg.get("trace")
+            if trace:
+                mark = inst.telemetry.begin()
             r = inst.prefill_export(msg["req_id"], msg["client"],
                                     np.asarray(msg["tokens"], np.int32),
                                     _sig_tuple(msg.get("sig") or ()))
-            if msg.get("trace") and r.get("exported"):
-                inst.telemetry.span(
-                    "decode/prefill", "pool",
-                    (time.perf_counter() - t0) * 1e3, rid=msg["req_id"],
+            if trace and r.get("exported"):
+                inst.telemetry.end(
+                    mark, "decode/prefill", "pool", rid=msg["req_id"],
                     tid=self._pool_tid,
                     args={"n_shared": r.get("n_shared", 0)})
             return {"ok": True, **r}
         if op == "dadmit":
-            t0 = time.perf_counter()
+            trace = msg.get("trace")
+            if trace:
+                mark = inst.telemetry.begin()
             handoff = msg.get("kv")
             if handoff is not None:
                 # validate on the receiving side of the hop: a mangled
@@ -689,25 +761,29 @@ class PoolService:
                                   np.asarray(msg["tokens"], np.int32),
                                   msg["max_new"],
                                   _sig_tuple(msg.get("sig") or ()),
-                                  handoff=handoff)
-            if msg.get("trace") and r.get("admitted"):
-                inst.telemetry.span(
-                    "decode/admit", "pool",
-                    (time.perf_counter() - t0) * 1e3, rid=msg["req_id"],
+                                  handoff=handoff,
+                                  span=(msg["req_id"], mark.sid)
+                                  if trace else None)
+            if trace and r.get("admitted"):
+                inst.telemetry.end(
+                    mark, "decode/admit", "pool", rid=msg["req_id"],
                     tid=self._pool_tid,
                     args={"n_shared": r.get("n_shared", 0)})
                 if not r.get("done"):
                     self._dtraced.add(msg["req_id"])
             return {"ok": True, **r}
         if op == "dstep":
-            t0 = time.perf_counter()
-            r = inst.decode_step_batch()
-            traced = [ev["rid"] for ev in r["events"]
-                      if ev["rid"] in self._dtraced]
+            # the traced streams this step advances: its span and its
+            # phases' are recorded when there is one
+            traced = self._dtraced and [rid for rid in inst.resident_rids()
+                                        if rid in self._dtraced]
             if traced:
-                inst.telemetry.span(
-                    "decode/step", "pool",
-                    (time.perf_counter() - t0) * 1e3, rid=traced[0],
+                mark = inst.telemetry.begin()
+            r = inst.decode_step_batch(
+                span=(traced[0], mark.sid) if traced else None)
+            if traced:
+                inst.telemetry.end(
+                    mark, "decode/step", "pool", rid=traced[0],
                     tid=self._pool_tid,
                     args={"rids": traced, "active": r["active"]})
                 self._dtraced.difference_update(
@@ -761,9 +837,11 @@ class PoolHandle:
     share between threads; the wire hop measurement in :meth:`submit`
     reads the channel's last sample inside the same critical section."""
 
-    def __init__(self, key: tuple, channel: Channel):
+    def __init__(self, key: tuple, channel: Channel, telemetry=None):
         self.key = key
         self.channel = channel
+        if telemetry is not None:          # the channel's frame spans
+            channel.attach(telemetry)
         self._lock = threading.Lock()
 
     def _check(self, reply: dict) -> dict:
@@ -800,8 +878,13 @@ class PoolHandle:
         _, nbytes, ms = sample
         return nbytes, ms
 
-    def flush(self) -> list:
-        reply = self._call({"op": "flush"})
+    def flush(self, trace_rid: Optional[int] = None) -> list:
+        """Run the pool's queued batch; ``trace_rid``, a traced request
+        in it, traces the flush's frames under that id."""
+        msg = {"op": "flush"}
+        if trace_rid is not None:
+            msg.update(trace=True, req_id=trace_rid)
+        reply = self._call(msg)
         return [(r["req_id"], r["payload"]) for r in reply["results"]]
 
     def execute(self, items: list) -> list:
@@ -915,6 +998,7 @@ class GraftExecutor:
         self.decode_disagg = bool(decode_disagg)
         self.transport = transport if transport is not None \
             else InProcessTransport()
+        self.transport.attach(self.telemetry)
         self._handles: dict[tuple, PoolHandle] = {}
         self._fragment_fns: dict[tuple, object] = {}
         self._rid = itertools.count()
@@ -941,7 +1025,8 @@ class GraftExecutor:
             telemetry=self.telemetry))
         name = pool_endpoint(spec.key)
         self.transport.serve(name, svc.handle)
-        return PoolHandle(spec.key, self.transport.connect(name))
+        return PoolHandle(spec.key, self.transport.connect(name),
+                          telemetry=self.telemetry)
 
     def _spawn_pools(self, specs: list) -> dict:
         """Create several pools; returns {key: handle}. Sequential here;
@@ -1188,7 +1273,8 @@ class GraftExecutor:
         new dial-back lane to the pool's worker."""
         if key not in self._handles:
             raise KeyError(f"no pool {key}")
-        return PoolHandle(key, self.transport.connect(pool_endpoint(key)))
+        return PoolHandle(key, self.transport.connect(pool_endpoint(key)),
+                          telemetry=self.telemetry)
 
     def record_uplink(self, client: str, nbytes: float, ms: float) -> None:
         """Log one measured first-hop transfer (the server's batch-close

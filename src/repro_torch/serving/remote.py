@@ -439,6 +439,13 @@ class WorkerChannel(Channel):
     def _invalidate(self) -> None:
         self._inner = None
 
+    def attach(self, telemetry) -> None:
+        """Frame spans go to ``telemetry`` from the socket lane this
+        channel rides, now and after every re-bind."""
+        super().attach(telemetry)
+        if self._inner is not None:
+            self._inner.attach(telemetry)
+
     def _ensure(self) -> SocketChannel:
         w = self._worker
         with w._lock:
@@ -447,6 +454,7 @@ class WorkerChannel(Channel):
             if self._inner is None or self.gen != w.gen:
                 inner = w._main_raw if self.main else w._connect_lane_locked()
                 inner.stats = self.stats      # ONE log across respawns
+                inner.attach(self.telemetry)
                 self._inner = inner
                 self.gen = w.gen
             return self._inner
@@ -968,7 +976,7 @@ class RemoteExecutor(GraftExecutor):
         channel = w.channel
         if self._shaper is not None:
             channel = _ShapedChannel(channel, self._shaper)
-        h = PoolHandle(spec.key, channel)
+        h = PoolHandle(spec.key, channel, telemetry=self.telemetry)
         h.pid = w.pid
         return h
 
@@ -1045,7 +1053,7 @@ class RemoteExecutor(GraftExecutor):
         channel: Channel = w.open_channel()
         if self._shaper is not None:
             channel = _ShapedChannel(channel, self._shaper)
-        h = PoolHandle(key, channel)
+        h = PoolHandle(key, channel, telemetry=self.telemetry)
         h.pid = w.pid
         return h
 

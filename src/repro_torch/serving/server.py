@@ -139,6 +139,7 @@ class _InFlight:
     local: bool = False              # finished by the in-process fallback
     shed_exempt: bool = False        # budget-forced admit: never shed later
     trace: bool = False              # won the telemetry span-sampling draw
+    t_submit_ns: int = 0             # submit on the epoch clock (traced)
     # -- decode (autoregressive) requests only --
     decode: bool = False
     max_new: int = 0                 # decode length budget
@@ -294,6 +295,8 @@ class GraftServer:
         self._m_handoff_ms = tel.histogram("server/kv_handoff_ms")
         self._m_apply_ms = tel.histogram("replan/apply_ms")
         self._m_inflight = tel.gauge("server/inflight")
+        # spans stamp clocks only when this is True (False on NULL)
+        self._tracing = tel.tracing
         self.controller = controller
         self.book = book
         self.cfg = executor.cfg
@@ -470,7 +473,8 @@ class GraftServer:
         with self._ingest_cond:
             if self.registry is not None:      # fleet: results may surface on
                 self.registry[rid] = self      # ANOTHER front-end's flush
-            self._ingest_q.append((rid, req, p, budget_ms, self.now_ms()))
+            self._ingest_q.append((rid, req, p, budget_ms, self.now_ms(),
+                                   time.time_ns() if self._tracing else 0))
             self._n_submitted += 1
             self._ingest_cond.notify_all()
         return rid
@@ -482,12 +486,13 @@ class GraftServer:
                     self._ingest_cond.wait(timeout=0.1)
                 if self._ingest_q:
                     job = self._ingest_q.popleft()
+                    depth = len(self._ingest_q)
                 elif self._stop_ingest:
                     return
                 else:
                     continue
             try:
-                self._ingest_one(*job)
+                self._ingest_one(*job, depth=depth)
             except Exception:
                 traceback.print_exc()
                 self._inflight.pop(job[0], None)
@@ -497,17 +502,34 @@ class GraftServer:
                     self._n_done += 1
                     self._done_cond.notify_all()
 
-    def _ingest_one(self, rid, req, p, budget_ms, t_submit):
+    def _ingest_one(self, rid, req, p, budget_ms, t_submit, t_submit_ns,
+                    depth=0):
+        """``depth``: the jobs still queued when this one was taken."""
         if getattr(req, "max_new_tokens", 0) > 0:
-            self._ingest_decode(rid, req, budget_ms, t_submit)
+            self._ingest_decode(rid, req, budget_ms, t_submit, t_submit_ns,
+                                depth)
             return
+        trace = self._tracing and self.telemetry.want_trace(rid)
         t_mob0 = self.now_ms()
+        if trace:
+            t_mob_ns, cpu0 = time.time_ns(), time.thread_time_ns()
         payload = self.executor.mobile_part(req, p)
+        if trace:
+            cpu_ms = (time.thread_time_ns() - cpu0) / 1e6
         now = self.now_ms()
+        if trace:
+            # on the server clock, as ``ingest`` and ``ingest/wait`` are:
+            # the two phases add up to the span exactly
+            sid = self.telemetry.new_sid()
+            self.telemetry.span(
+                "ingest/mobile", "server", now - t_mob0,
+                t0_ms=t_mob_ns / 1e6, rid=rid, tid=self.name,
+                args={"p": p, "n_tokens": len(req.tokens),
+                      "cpu_ms": cpu_ms}, parent=sid)
         # the server-side clock starts when the payload LEAVES the
         # device: submit time plus the device compute itself — NOT `now`,
         # which would silently exclude time spent queued behind other
-        # clients' mobile parts in the single ingest thread. Queue wait
+        # clients' mobile parts on the ingest threads. Queue wait
         # counts against the budget; simulated device compute does not.
         t_arrive = t_submit + (now - t_mob0)
         if self.controller is not None:
@@ -517,24 +539,23 @@ class GraftServer:
         st = _InFlight(req=req, p=p, budget_ms=budget_ms,
                        t_submit_ms=t_submit, t_arrive_ms=t_arrive,
                        deadline_ms=t_arrive + budget_ms,
-                       trace=self.telemetry.want_trace(rid))
+                       trace=trace, t_submit_ns=t_submit_ns)
         self._inflight[rid] = st
         self._m_ingested.inc()
         self._m_inflight.set(len(self._inflight))
-        if st.trace:
-            self.telemetry.span("ingest", "server", now - t_submit,
-                                rid=rid, tid=self.name,
-                                args={"client": req.client, "p": p})
+        if trace:
+            self._ingest_spans(rid, st, sid, t_mob0, now, depth,
+                               {"client": req.client, "p": p})
         with self._rw.read():
             chain = self._routes.get(req.client)
             if chain and chain[0][1] == p:
                 st.chain = list(chain)
-                t_sc = self._perf()
+                if trace:
+                    sc = self.telemetry.begin()
                 shed = self._shed_at_ingest(rid, st, now)
-                if st.trace:
-                    self.telemetry.span("shed-check", "server",
-                                        self._perf() - t_sc, rid=rid,
-                                        tid=self.name, args={"shed": shed})
+                if trace:
+                    self.telemetry.end(sc, "shed-check", "server", rid=rid,
+                                       tid=self.name, args={"shed": shed})
                 if shed:
                     return
                 self._enqueue_stage(rid, st, payload)
@@ -548,7 +569,25 @@ class GraftServer:
         self._kick.set()
 
     # ----------------------------------------------------- decode ingest
-    def _ingest_decode(self, rid, req, budget_ms, t_submit):
+    def _ingest_spans(self, rid, st: _InFlight, sid: int, t_take: float,
+                      now: float, depth: int, args: dict) -> None:
+        """The ``ingest`` span (submit until the payload is ready) and
+        its ``ingest/wait`` child (submit until an ingest thread took the
+        job), both on the server clock from the submit's epoch stamp."""
+        tel, t0 = self.telemetry, st.t_submit_ns / 1e6
+        tel.span("ingest/wait", "server", t_take - st.t_submit_ms, t0_ms=t0,
+                 rid=rid, tid=self.name, args={"depth": depth}, parent=sid)
+        tel.span("ingest", "server", now - st.t_submit_ms, t0_ms=t0,
+                 rid=rid, tid=self.name, args=args, sid=sid)
+
+    @staticmethod
+    def _epoch_ms(st: _InFlight, t_ms: float) -> float:
+        """Server-clock time ``t_ms`` of a traced request on the epoch
+        clock, from its submit stamp."""
+        return st.t_submit_ns / 1e6 + (t_ms - st.t_submit_ms)
+
+    def _ingest_decode(self, rid, req, budget_ms, t_submit, t_submit_ns,
+                       depth):
         """Autoregressive ingest: no mobile part (the device ships raw
         token ids; the full-range pool owns the KV cache), and a two-part
         deadline contract — the first token must land within ``budget_ms``
@@ -564,7 +603,8 @@ class GraftServer:
                        + tpot * (max_new - 1),
                        decode=True, max_new=max_new, tpot_ms=tpot,
                        ttft_deadline_ms=t_submit + budget_ms,
-                       trace=self.telemetry.want_trace(rid))
+                       trace=self._tracing and self.telemetry.want_trace(rid),
+                       t_submit_ns=t_submit_ns)
         if self.controller is not None:
             with self._ctl_lock:
                 self.controller.observe_arrival(now, req.client,
@@ -573,9 +613,8 @@ class GraftServer:
         self._m_ingested.inc()
         self._m_inflight.set(len(self._inflight))
         if st.trace:
-            self.telemetry.span("ingest", "server", now - t_submit,
-                                rid=rid, tid=self.name,
-                                args={"client": req.client, "decode": True})
+            self._ingest_spans(rid, st, self.telemetry.new_sid(), now, now,
+                               depth, {"client": req.client, "decode": True})
         with self._rw.read():
             chain = self._decode_chain(req.client)
             if chain is not None:
@@ -705,6 +744,7 @@ class GraftServer:
             rid=rid, client=st.req.client, payload=toks,
             flush_ms=now, deadline_ms=st.deadline_ms,
             boundary=0, enqueued_ms=now, n_tokens=int(toks.shape[0]),
+            enqueued_ns=time.time_ns() if st.trace else 0,
             trace=st.trace, decode=True, max_new=st.max_new,
             ttft_deadline_ms=st.ttft_deadline_ms,
             tpot_budget_ms=st.tpot_ms))
@@ -847,7 +887,8 @@ class GraftServer:
         self._m_inflight.set(len(self._inflight))
         t = self.now_ms()
         if st.trace:
-            self.telemetry.span("shed", "server", 0.0, rid=rid,
+            self.telemetry.span("shed", "server", 0.0,
+                                t0_ms=time.time_ns() / 1e6, rid=rid,
                                 tid=self.name,
                                 args={"client": st.req.client,
                                       "where": where})
@@ -879,6 +920,7 @@ class GraftServer:
                     flush_ms=now, deadline_ms=st.deadline_ms,
                     extras=self._wire_extras(st.req), boundary=key[1],
                     enqueued_ms=now, trace=st.trace,
+                    enqueued_ns=time.time_ns() if st.trace else 0,
                     n_tokens=int(payload.shape[0])))
             return
         now = self.now_ms()
@@ -897,6 +939,7 @@ class GraftServer:
             flush_ms=flush, deadline_ms=st.deadline_ms,
             extras=self._wire_extras(st.req), boundary=key[1],
             enqueued_ms=now, trace=st.trace,
+            enqueued_ns=time.time_ns() if st.trace else 0,
             hop_charge_ms=hop if st.stage == 0 else 0.0,
             n_tokens=int(payload.shape[0])))
 
@@ -930,10 +973,11 @@ class GraftServer:
             if st.stage != 0 and self.shed_policy is not None \
                     and self._shed_at_flush(it, st, now):
                 continue
+            q_ms = now - it.enqueued_ms
+            self._m_queue_ms.record(q_ms)
             if it.trace:
-                q_ms = now - it.enqueued_ms
-                self._m_queue_ms.record(q_ms)
                 self.telemetry.span("queue", "server", q_ms,
+                                    t0_ms=it.enqueued_ns / 1e6,
                                     rid=it.rid, tid=pool_tid,
                                     args={"stage": st.stage})
             (stage0 if st.stage == 0 else later).append(it)
@@ -970,6 +1014,8 @@ class GraftServer:
                                       it, st, self.now_ms(),
                                       extra_ms=companions)):
                     continue
+                if it.trace:
+                    t_up = time.time_ns()
                 sample = handle.submit(it.rid, it.client, it.payload,
                                        extras=it.extras, trace=it.trace)
                 if sample is not None:
@@ -983,14 +1029,16 @@ class GraftServer:
                     self._m_uplink_bytes.record(nbytes)
                     if it.trace:
                         self.telemetry.span(
-                            "uplink", "server", ms, rid=it.rid,
-                            tid=pool_tid,
+                            "uplink", "server", ms, t0_ms=t_up / 1e6,
+                            rid=it.rid, tid=pool_tid,
                             args={"client": it.client, "nbytes": nbytes})
             if stage0:
                 # the reply is framed on the host, which waits for the
                 # device: this wall time covers the pool's device work
                 t0 = self._perf()
-                results += handle.flush()
+                results += handle.flush(
+                    trace_rid=next((it.rid for it in stage0 if it.trace),
+                                   None) if self._tracing else None)
                 exec_ms += self._perf() - t0
         except PoolDrainingError:
             # intake refused atomically: nothing queued pool-side
@@ -1114,10 +1162,11 @@ class GraftServer:
                     self._shed(item.rid, st, "decode")
                     return
                 st.shed_exempt = True
+        q_ms = now - item.enqueued_ms
+        self._m_queue_ms.record(q_ms)
         if item.trace:
-            q_ms = now - item.enqueued_ms
-            self._m_queue_ms.record(q_ms)
-            self.telemetry.span("queue", "server", q_ms, rid=item.rid,
+            self.telemetry.span("queue", "server", q_ms,
+                                t0_ms=item.enqueued_ns / 1e6, rid=item.rid,
                                 tid="pool/{}/{}-{}".format(*driver.key),
                                 args={"decode": True})
         sig = self._decode_sig(st)
@@ -1320,7 +1369,9 @@ class GraftServer:
             self._m_tpot_ms.record(tpot)
         if st.trace:
             self.telemetry.span("request", "server",
-                                t_done - st.t_arrive_ms, rid=rid,
+                                t_done - st.t_arrive_ms,
+                                t0_ms=self._epoch_ms(st, st.t_arrive_ms),
+                                rid=rid,
                                 tid=self.name,
                                 args={"client": st.req.client, "ok": ok,
                                       "decode": True, "n_tokens": n,
@@ -1363,7 +1414,8 @@ class GraftServer:
                 st.t_first_ms = self.now_ms()
             st.n_gen = 1
             while len(out) < st.max_new:
-                t0 = self._perf()
+                if st.trace:
+                    m = self.telemetry.begin()
                 logits, cache = decode_step(
                     self.executor.params, self.cfg, cache,
                     torch.tensor([[out[-1]]], dtype=torch.int32,
@@ -1371,11 +1423,10 @@ class GraftServer:
                 out.append(int(torch.argmax(logits[0, -1])))
                 st.n_gen = len(out)
                 if st.trace:
-                    self.telemetry.span("decode/step", "server",
-                                        self._perf() - t0, rid=rid,
-                                        tid=self.name,
-                                        args={"n_gen": len(out),
-                                              "local": True})
+                    self.telemetry.end(m, "decode/step", "server", rid=rid,
+                                       tid=self.name,
+                                       args={"n_gen": len(out),
+                                             "local": True})
             self._complete_decode(rid, st, out)
         except Exception:
             # even the fallback failed: retire as a shed so join() never
@@ -1593,7 +1644,9 @@ class GraftServer:
         self._m_inflight.set(len(self._inflight))
         self._m_latency_ms.record(latency)
         if st.trace:
-            self.telemetry.span("request", "server", latency, rid=rid,
+            self.telemetry.span("request", "server", latency,
+                                t0_ms=self._epoch_ms(st, st.t_arrive_ms),
+                                rid=rid,
                                 tid=self.name,
                                 args={"client": st.req.client,
                                       "ok": latency <= st.budget_ms})
@@ -1908,6 +1961,24 @@ class GraftServer:
                 self._done_cond.wait(timeout=left if left is not None
                                      else 1.0)
         return True
+
+    def wait_done(self, mark: int, timeout: float) -> bool:
+        """Block until the completion log holds an entry past ``mark``
+        (a :meth:`mark` taken earlier), or ``timeout`` seconds pass.
+        Waits on the condition every completion notifies, so a caller
+        takes the interpreter lock only when there is news. True when
+        there is."""
+        with self._done_cond:
+            return self._done_cond.wait_for(
+                lambda: self._records_base + len(self._records) > mark,
+                max(timeout, 0.0))
+
+    def emitted(self, rid: int) -> int:
+        """Tokens emitted so far for decode stream ``rid`` while it is on
+        the server's books (0 before its admission and after it
+        completes: its record then holds the tokens)."""
+        st = self._inflight.get(rid)
+        return 0 if st is None else int(st.n_gen)
 
     def mark(self) -> int:
         """Snapshot index into the completion log (warmup exclusion)."""

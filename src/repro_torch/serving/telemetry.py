@@ -21,11 +21,16 @@ has to satisfy three constraints at once:
     *sampled* per request id (deterministic hash, so every hop of one
     request agrees on the decision without coordination).
 
-  * **Cross-process timelines.** Span timestamps are epoch
-    milliseconds (``time.time``), the only clock subprocesses share, so
-    a span opened on a front-end and closed on a worker hop lands on
-    one Perfetto timeline. Export is Chrome trace-event JSON
-    (``ph: "X"`` complete events + ``M`` name metadata) or JSONL.
+  * **Cross-process timelines.** A span's start ``t0_ms`` is epoch
+    milliseconds stamped from ``time.time_ns`` when the span starts:
+    the clock subprocesses share, and the one ``torch.profiler`` stamps
+    its CPU and CUDA events with, so program spans and a device trace
+    line up. Durations are measured on ``time.perf_counter`` (or the
+    server's own clock). Each span has an id (``sid``) unique in its
+    registry and the ``parent`` id of the span that encloses it, so
+    self time is a span's duration minus its children's. Export is
+    Chrome trace-event JSON (``ph: "X"`` complete events + ``M`` name
+    metadata) or JSONL.
 
 The replan audit rides here too: :class:`ServingController` appends one
 :func:`audit_entry` per replan (trigger names, the window stats that
@@ -34,6 +39,7 @@ latency onto it after the writer-lock transition completes.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import threading
@@ -44,7 +50,7 @@ from zlib import crc32
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Telemetry", "NULL",
-    "GROWTH", "ZERO_IDX", "bucket_index", "bucket_value",
+    "GROWTH", "ZERO_IDX", "bucket_index", "bucket_value", "Mark",
 ]
 
 # Geometric bucket layout shared by every histogram in the system —
@@ -272,12 +278,28 @@ class _NullInstrument:
 _NULL_INSTRUMENT = _NullInstrument()
 
 
+class Mark:
+    """An open span (:meth:`Telemetry.begin`): its id, its start on the
+    epoch clock (ns) and on ``perf_counter`` (s), and the thread's CPU
+    time at the start (ns; None when not asked for)."""
+
+    __slots__ = ("sid", "t0_ns", "p0", "cpu0")
+
+    def __init__(self, sid: int, t0_ns: int, p0: float, cpu0):
+        self.sid, self.t0_ns, self.p0, self.cpu0 = sid, t0_ns, p0, cpu0
+
+
 class Telemetry:
     """Named registry of instruments + the span/audit stores.
 
     One Telemetry is shared by everything in a process that should merge
     for free (all fleet front-ends share one); subprocess registries
     merge explicitly via :meth:`snapshot` / :meth:`merge_snapshot`.
+
+    ``tracing`` is the pre-bound verdict instrumented code checks before
+    it stamps a clock for a span: False on :data:`NULL` and on a
+    registry built without ``trace``, so an untraced hot path pays one
+    attribute test and no clock read.
     """
 
     enabled = True
@@ -285,8 +307,9 @@ class Telemetry:
     def __init__(self, *, process: str = "main", trace: bool = False,
                  trace_sample: float = 1.0, max_spans: int = 65_536):
         self.process = process
-        self._trace = bool(trace)
+        self.tracing = bool(trace)
         self._sample = float(trace_sample)
+        self._sids = itertools.count(1)
         self._lock = threading.Lock()
         self._counters: dict = {}
         self._gauges: dict = {}
@@ -321,25 +344,55 @@ class Telemetry:
         """Deterministic per-request sampling decision: every hop (any
         thread, any process) hashes the rid to the same verdict, so a
         sampled request is traced end to end without coordination."""
-        if not self._trace:
+        if not self.tracing:
             return False
         if self._sample >= 1.0:
             return True
         return (crc32(str(rid).encode()) & 0xFFFF) / 65536.0 < self._sample
 
-    def span(self, name: str, cat: str, dur_ms: float, *,
-             t0_ms: Optional[float] = None, rid=None,
-             tid: str = "main", args: Optional[dict] = None) -> None:
-        """Record one *completed* span. ``t0_ms`` is epoch ms; when
-        omitted the span is assumed to have just ended (t0 = now - dur).
-        Callers gate on :meth:`want_trace` — span() itself never drops.
-        """
-        if t0_ms is None:
-            t0_ms = time.time() * 1e3 - dur_ms
+    def new_sid(self) -> int:
+        """A span id unique in this registry: taken before a span's
+        children close, so they can name it as their ``parent``."""
+        return next(self._sids)
+
+    def span(self, name: str, cat: str, dur_ms: float, *, t0_ms: float,
+             rid=None, tid: str = "main", args: Optional[dict] = None,
+             sid: Optional[int] = None,
+             parent: Optional[int] = None) -> None:
+        """Record one *completed* span. ``t0_ms`` is
+        its start in epoch ms, stamped from ``time.time_ns`` when the
+        span started (:meth:`begin` does both ends for a span that opens
+        and closes on one thread). Ids are unique per registry; spans
+        merged from a worker keep their own, so across processes a span
+        is ``(pid, sid)``. Callers gate on :meth:`want_trace` — span()
+        itself never drops."""
+        if sid is None:
+            sid = next(self._sids)
         self.spans.append({
             "name": name, "cat": cat, "t0_ms": t0_ms,
             "dur_ms": max(dur_ms, 0.0), "rid": rid,
-            "pid": self.process, "tid": tid, "args": args or {}})
+            "pid": self.process, "tid": tid, "args": args or {},
+            "sid": sid, "parent": parent})
+
+    def begin(self, *, cpu: bool = False) -> Mark:
+        """Open a span here: take its id and stamp its start (and the
+        thread's CPU time when ``cpu``). Close it with :meth:`end`."""
+        return Mark(next(self._sids), time.time_ns(), time.perf_counter(),
+                    time.thread_time_ns() if cpu else None)
+
+    def end(self, mark: Mark, name: str, cat: str, *, rid=None,
+            tid: str = "main", args: Optional[dict] = None,
+            parent: Optional[int] = None) -> None:
+        """Close the span ``mark`` opened: its duration on
+        ``perf_counter``, and ``args["cpu_ms"]``, the thread's CPU time
+        across it, when the mark stamped one."""
+        # the CPU interval is read inside the wall one, so cpu <= wall
+        if mark.cpu0 is not None:
+            args = dict(args or {},
+                        cpu_ms=(time.thread_time_ns() - mark.cpu0) / 1e6)
+        dur = (time.perf_counter() - mark.p0) * 1e3
+        self.span(name, cat, dur, t0_ms=mark.t0_ns / 1e6, rid=rid, tid=tid,
+                  args=args, sid=mark.sid, parent=parent)
 
     # ------------------------------------------------------ merge / export
     def snapshot(self, *, drain_spans: bool = False) -> dict:
@@ -412,6 +465,8 @@ class Telemetry:
             args = dict(sp.get("args") or {})
             if sp.get("rid") is not None:
                 args["rid"] = sp["rid"]
+            args["sid"] = sp.get("sid")
+            args["parent"] = sp.get("parent")
             events.append({
                 "name": sp["name"], "cat": sp["cat"], "ph": "X",
                 "ts": sp["t0_ms"] * 1e3, "dur": sp["dur_ms"] * 1e3,

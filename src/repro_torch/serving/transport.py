@@ -37,7 +37,16 @@ never a silent short read.
 Every channel records ``(t_wall_s, nbytes, ms)`` per transfer in a
 :class:`TransferStats`; ``ServingController.observe_uplink`` consumes
 these samples so the bandwidth estimator can run on transport-measured
-uplink throughput instead of simulator-fabricated numbers.
+uplink throughput instead of simulator-fabricated numbers. Reply frames
+are tallied apart (``reply_bytes``), so the samples stay request frames.
+
+A channel given a telemetry registry (:meth:`Channel.attach`), and a
+socket endpoint served with one, record a ``frame/encode`` and a
+``frame/decode`` span for each frame of a traced message (one carrying
+the ``trace`` flag, or an item that does) and of its reply: the packing
+or unpacking alone, with the frame's bytes, the bytes of device tensors
+copied to the host while packing (``d2h_bytes``) and the thread's CPU
+time (``cpu_ms``).
 """
 from __future__ import annotations
 
@@ -53,6 +62,8 @@ from typing import Callable, Optional
 import msgpack
 import numpy as np
 import torch
+
+from repro_torch.serving.telemetry import NULL as NULL_TELEMETRY
 
 __all__ = [
     "FrameError", "TruncatedFrameError", "TransferStats", "error_reply",
@@ -114,6 +125,16 @@ def _pack_default(obj):
     if isinstance(obj, (np.generic,)):          # numpy scalars
         return obj.item()
     raise TypeError(f"unencodable type {type(obj)!r}")
+
+
+def _pack_counting(d2h: list):
+    """``_pack_default`` that adds to ``d2h[0]`` the bytes of each tensor
+    it copies from a device to the host."""
+    def default(obj):
+        if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
+            d2h[0] += obj.numel() * obj.element_size()
+        return _pack_default(obj)
+    return default
 
 
 def _unpack_tensor(obj) -> torch.Tensor:
@@ -224,8 +245,11 @@ def kv_frame_nbytes(frame: dict) -> int:
     return n + 64
 
 
-def _encode_body(msg: dict, max_frame_bytes: int) -> bytes:
-    body = msgpack.packb(msg, default=_pack_default, use_bin_type=True)
+def _encode_body(msg: dict, max_frame_bytes: int,
+                 d2h: Optional[list] = None) -> bytes:
+    """``d2h``: a one-element tally of device bytes copied to the host."""
+    body = msgpack.packb(msg, default=_pack_default if d2h is None
+                         else _pack_counting(d2h), use_bin_type=True)
     if len(body) > max_frame_bytes:
         raise FrameError(f"frame of {len(body)} bytes exceeds "
                          f"max_frame_bytes={max_frame_bytes}")
@@ -276,12 +300,20 @@ def _read_exact(readable, n: int) -> bytearray:
 def read_frame(readable, *, max_frame_bytes: int = DEFAULT_MAX_FRAME
                ) -> dict:
     """Read one length-prefixed frame from a socket or file-like object."""
+    return _decode_body(_read_body(readable, max_frame_bytes))
+
+
+def _read_body(readable, max_frame_bytes: int) -> bytearray:
+    """One frame's body, its length prefix read and checked."""
     header = _read_exact(readable, _LEN.size)
     (length,) = _LEN.unpack(header)
     if length > max_frame_bytes:
         raise FrameError(f"incoming frame of {length} bytes exceeds "
                          f"max_frame_bytes={max_frame_bytes}")
-    body = _read_exact(readable, length)
+    return _read_exact(readable, length)
+
+
+def _decode_body(body: bytearray) -> dict:
     try:
         return msgpack.unpackb(body, object_hook=_unpack_hook, raw=False,
                                strict_map_key=False)
@@ -297,9 +329,13 @@ def read_frame(readable, *, max_frame_bytes: int = DEFAULT_MAX_FRAME
 
 def write_frame(sock: socket.socket, msg: dict, *,
                 max_frame_bytes: int = DEFAULT_MAX_FRAME) -> int:
-    """Frame + send; returns bytes written. A large body goes out after
-    its length prefix rather than copied behind it."""
-    body = _encode_body(msg, max_frame_bytes)
+    """Frame + send; returns bytes written."""
+    return _send_body(sock, _encode_body(msg, max_frame_bytes))
+
+
+def _send_body(sock: socket.socket, body: bytes) -> int:
+    """Send one frame's length prefix and body; returns bytes written. A
+    large body goes out after its prefix rather than copied behind it."""
     header = _LEN.pack(len(body))
     if len(body) < LARGE_FRAME_BYTES:
         sock.sendall(header + body)
@@ -325,9 +361,13 @@ class TransferStats:
     ``drain()`` periodically."""
     samples: deque = field(
         default_factory=lambda: deque(maxlen=MAX_STAT_SAMPLES))
+    reply_bytes: int = 0             # every reply frame, apart from samples
 
     def record(self, nbytes: int, ms: float) -> None:
         self.samples.append((time.time(), int(nbytes), float(ms)))
+
+    def record_reply(self, nbytes: int) -> None:
+        self.reply_bytes += int(nbytes)
 
     @property
     def n_transfers(self) -> int:
@@ -357,7 +397,69 @@ class TransferStats:
 # transport abstraction
 # ---------------------------------------------------------------------------
 
-class Channel:
+def _frame_rid(msg: dict):
+    """The request id a traced message's frames carry: its own
+    ``req_id`` when it carries the trace flag, else the first traced
+    item's; None when the message is not traced."""
+    if msg.get("trace"):
+        return msg.get("req_id")
+    for it in msg.get("items") or ():
+        if it.get("trace"):
+            return it.get("req_id")
+    return None
+
+
+class _FrameSpans:
+    """Frame spans of traced messages, for either end of a hop."""
+
+    telemetry = NULL_TELEMETRY
+    _tracing = False
+
+    def attach(self, telemetry) -> None:
+        """Record frame spans of traced messages into ``telemetry``."""
+        self.telemetry = telemetry
+        self._tracing = telemetry.tracing
+
+    def _frame_trace(self, msg: dict) -> Optional[tuple]:
+        """(op, rid) when the frames of ``msg`` and its reply are traced,
+        else None. The reply inherits the request's verdict."""
+        if not self._tracing:
+            return None
+        rid = _frame_rid(msg)
+        return None if rid is None else (msg.get("op"), rid)
+
+    def _frame_span(self, mark, name: str, direction: str, trace: tuple,
+                    nbytes: int, d2h: int) -> None:
+        self.telemetry.end(mark, name, "transport", rid=trace[1],
+                           tid=self.name,
+                           args={"dir": direction, "op": trace[0],
+                                 "nbytes": nbytes, "d2h_bytes": d2h})
+
+    def _pack_body(self, msg: dict, max_frame_bytes: int,
+                   direction: str, trace) -> bytes:
+        """The frame body for ``msg`` (its length prefix goes apart),
+        with its ``frame/encode`` span when traced."""
+        if trace is None:
+            return _encode_body(msg, max_frame_bytes)
+        mark, d2h = self.telemetry.begin(cpu=True), [0]
+        body = _encode_body(msg, max_frame_bytes, d2h)
+        self._frame_span(mark, "frame/encode", direction, trace,
+                         _LEN.size + len(body), d2h[0])
+        return body
+
+    def _unpack_body(self, body, direction: str, trace) -> dict:
+        """The message in a frame body, with its ``frame/decode`` span
+        when traced."""
+        if trace is None:
+            return _decode_body(body)
+        mark = self.telemetry.begin(cpu=True)
+        msg = _decode_body(body)
+        self._frame_span(mark, "frame/decode", direction, trace,
+                         _LEN.size + len(body), 0)
+        return msg
+
+
+class Channel(_FrameSpans):
     """One request/reply lane to a served endpoint."""
 
     def __init__(self, name: str):
@@ -379,6 +481,14 @@ class Transport:
     *name* resolves to is transport-specific (a dict entry in-process, a
     ``host:port`` for sockets).
     """
+
+    telemetry = NULL_TELEMETRY
+
+    def attach(self, telemetry) -> None:
+        """Record the frame spans of endpoints served from now on into
+        ``telemetry``, where the serving end frames on its own (a socket
+        endpoint; a loopback channel records both ends itself)."""
+        self.telemetry = telemetry
 
     def serve(self, name: str, handler: Callable[[dict], dict]) -> str:
         """Publish a handler; returns the address ``connect`` accepts."""
@@ -409,13 +519,15 @@ class _LoopbackChannel(Channel):
         self._max = max_frame_bytes
 
     def request(self, msg: dict) -> dict:
+        trace = self._frame_trace(msg)
         t0 = time.perf_counter()
-        wire = encode_frame(msg, max_frame_bytes=self._max)
-        reply = self._handler(decode_frame(wire, max_frame_bytes=self._max))
-        back = encode_frame(reply, max_frame_bytes=self._max)
+        body = self._pack_body(msg, self._max, "request", trace)
+        reply = self._handler(self._unpack_body(body, "request", trace))
+        back = self._pack_body(reply, self._max, "reply", trace)
         ms = (time.perf_counter() - t0) * 1e3
-        self.stats.record(len(wire), ms)
-        return decode_frame(back, max_frame_bytes=self._max)
+        self.stats.record(_LEN.size + len(body), ms)
+        self.stats.record_reply(_LEN.size + len(back))
+        return self._unpack_body(back, "reply", trace)
 
 
 class InProcessTransport(Transport):
@@ -460,11 +572,15 @@ class SocketChannel(Channel):
         self._lock = threading.Lock()
 
     def request(self, msg: dict) -> dict:
+        trace = self._frame_trace(msg)
         with self._lock:
             t0 = time.perf_counter()
-            n = write_frame(self._sock, msg, max_frame_bytes=self._max)
-            reply = read_frame(self._sock, max_frame_bytes=self._max)
+            n = _send_body(self._sock, self._pack_body(
+                msg, self._max, "request", trace))
+            body = _read_body(self._sock, self._max)
+            reply = self._unpack_body(body, "reply", trace)
             self.stats.record(n, (time.perf_counter() - t0) * 1e3)
+            self.stats.record_reply(_LEN.size + len(body))
             return reply
 
     def close(self) -> None:
@@ -474,12 +590,17 @@ class SocketChannel(Channel):
             pass
 
 
-class _SocketServer:
-    """One listening socket; each accepted connection gets a serve thread."""
+class _SocketServer(_FrameSpans):
+    """One listening socket; each accepted connection gets a serve thread.
+    Given a registry, it records the frame spans of traced messages on
+    its end of the hop, as the channel does on the other."""
 
-    def __init__(self, handler, max_frame_bytes, host="127.0.0.1"):
+    def __init__(self, handler, max_frame_bytes, host="127.0.0.1",
+                 telemetry=NULL_TELEMETRY, name: str = "serve"):
         self._handler = handler
         self._max = max_frame_bytes
+        self.name = name
+        self.attach(telemetry)
         self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._lsock.bind((host, 0))
@@ -507,16 +628,32 @@ class _SocketServer:
         try:
             while True:
                 try:
-                    msg = read_frame(conn, max_frame_bytes=self._max)
+                    body = _read_body(conn, self._max)
                 except (TruncatedFrameError, OSError):
                     return                      # peer went away
+                msg, trace = self._decode_request(body)
                 try:
                     reply = self._handler(msg)
                 except Exception as e:          # surface errors to the peer
                     reply = error_reply(e)
-                write_frame(conn, reply, max_frame_bytes=self._max)
+                _send_body(conn, self._pack_body(reply, self._max,
+                                                   "reply", trace))
         finally:
             conn.close()
+
+    def _decode_request(self, body: bytearray) -> tuple:
+        """-> (message, its frame trace). Whether a message is traced
+        shows only once it is unpacked, so while tracing every unpack is
+        timed and the span kept for traced ones."""
+        if not self._tracing:
+            return _decode_body(body), None
+        mark = self.telemetry.begin(cpu=True)
+        msg = _decode_body(body)
+        trace = self._frame_trace(msg)
+        if trace is not None:
+            self._frame_span(mark, "frame/decode", "request", trace,
+                             _LEN.size + len(body), 0)
+        return msg, trace
 
     def close(self):
         self._closing = True
@@ -543,7 +680,8 @@ class SocketTransport(Transport):
         self._remote: dict[str, tuple] = {}
 
     def serve(self, name: str, handler: Callable[[dict], dict]) -> str:
-        srv = _SocketServer(handler, self.max_frame_bytes, host=self.host)
+        srv = _SocketServer(handler, self.max_frame_bytes, host=self.host,
+                            telemetry=self.telemetry, name=name)
         self._servers[name] = srv
         return f"{srv.addr[0]}:{srv.addr[1]}"
 
@@ -595,6 +733,9 @@ class _ShapedChannel(Channel):
         self._owner = owner
         self.stats = inner.stats      # shaped ms overwrite the raw sample
 
+    def attach(self, telemetry) -> None:
+        self._inner.attach(telemetry)
+
     def request(self, msg: dict) -> dict:
         shape = self._owner.shape_for(msg.get("client"))
         reply = self._inner.request(msg)
@@ -638,6 +779,9 @@ class ShapedTransport(Transport):
         if client is None:
             return None
         return self.shapes.get(client)
+
+    def attach(self, telemetry) -> None:
+        self.inner.attach(telemetry)
 
     def serve(self, name, handler):
         return self.inner.serve(name, handler)

@@ -38,6 +38,7 @@ from repro_torch.serving.remote import (RemoteExecutor, SRC_ROOT,
                                         WorkerDiedError, bind_host_for,
                                         param_pieces)
 from repro_torch.serving.smoke import smoke_setup
+from repro_torch.serving.telemetry import Telemetry
 
 pytestmark = pytest.mark.slow          # worker spawn + torch import
 
@@ -229,6 +230,31 @@ def test_remote_worker_shutdown_on_pool_removal(setup):
     ex.close()
     for proc in procs.values():
         assert proc.poll() is not None       # every worker is gone
+
+
+def test_remote_traced_request_frames_its_worker_hops(setup):
+    """A traced request through a RemoteExecutor records the frame spans
+    of its hops to the worker on the parent's end of the socket lane."""
+    cfg, book, params, jcfg, jp = setup
+    tel = Telemetry(process="test", trace=True)
+    frags = [Fragment(cfg.name, 1, 60.0, 30.0, client="c0")]
+    ex = _remote(GraftPlanner(book).plan(frags), params, cfg, telemetry=tel)
+    server = GraftServer(ex, book=book).start()
+    try:
+        (req, p), = _requests(cfg, frags, seed=7)
+        rid = server.submit(req, p, 4000.0)
+        assert server.join(timeout=120.0), "the request never completed"
+    finally:
+        server.stop(drain=False, timeout=10.0)
+        ex.close()
+    check_against_jax(jcfg, jp, [(req, p)])
+    frames = {(s["name"], s["args"]["dir"], s["args"]["op"])
+              for s in tel.spans if s["name"].startswith("frame/")
+              and s["rid"] == rid}
+    assert {("frame/encode", "request", "execute"),
+            ("frame/decode", "reply", "execute")} <= frames or \
+        {("frame/encode", "request", "flush"),
+         ("frame/decode", "reply", "flush")} <= frames, frames
 
 
 def test_sliced_workers_serve_what_in_process_pools_serve(setup):
