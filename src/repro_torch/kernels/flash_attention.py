@@ -23,6 +23,7 @@ launches per wrapper so a run can show its main path went through them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional
@@ -47,11 +48,54 @@ def reset_launches() -> None:
 
 _count_lock = threading.Lock()
 
+# the tally of the CUDA graph this thread is capturing, if any
+_capturing = threading.local()
+
+
+class CaptureTally:
+    """What the kernel wrappers did on one thread while it captured a
+    CUDA graph (:func:`captured_launches`): the launches they recorded
+    into the graph, by wrapper (``launches``: name -> [its ``LAUNCHES``
+    dict, count]), and the scratch they handed the captured kernels
+    (``held``). The graph reads that scratch at every replay, so holding
+    it here keeps it alive when a larger call replaces it in its
+    wrapper's cache."""
+
+    def __init__(self):
+        self.launches: dict = {}
+        self.held: list = []
+
+    def replayed(self) -> None:
+        """Count one replay's launches in the wrappers' ``LAUNCHES``."""
+        with _count_lock:
+            for name, (counts, n) in self.launches.items():
+                counts[name] += n
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """``with captured_launches() as tally:`` around a CUDA graph capture
+    on this thread: the wrappers' launches go to ``tally`` and not to
+    ``LAUNCHES`` (a capture runs nothing; each replay counts them), and
+    a scratch that would have to grow raises instead (its zero fill
+    would run only inside the graph)."""
+    prev = getattr(_capturing, "tally", None)
+    _capturing.tally = tally = CaptureTally()
+    try:
+        yield tally
+    finally:
+        _capturing.tally = prev
+
 
 def count_launch(counts: dict, name: str) -> None:
     """Add one launch of ``name`` to a wrapper's ``LAUNCHES``: a server's
     threads launch kernels at once, and ``counts[name] += 1`` alone is
-    not atomic."""
+    not atomic. Inside :func:`captured_launches` the launch goes to the
+    capture's tally instead."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally.launches.setdefault(name, [counts, 0])[1] += 1
+        return
     with _count_lock:
         counts[name] += 1
 
@@ -134,11 +178,23 @@ def grown_scratch(cache: dict, device: torch.device, n_float: int,
     between launches (each launch leaves the tickets it took at zero).
     Allocated on first use and replaced by a larger one when a call needs
     more; a replaced buffer is freed in stream order, so a launch still
-    reading it is safe on one stream."""
+    reading it is safe on one stream. A CUDA graph capturing on this
+    thread (:func:`captured_launches`) holds what it is handed, and
+    must find it large enough."""
     buf, ticket = cache.get(device, (None, None))
-    if buf is None or buf.numel() < n_float:
+    grow_buf = buf is None or buf.numel() < n_float
+    grow_ticket = ticket is None or ticket.numel() < n_ticket
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        if grow_buf or grow_ticket:
+            raise RuntimeError(
+                "a kernel's scratch would grow inside a CUDA graph "
+                "capture: run the captured call once eagerly first")
+        tally.held.append((buf, ticket))
+        return buf, ticket
+    if grow_buf:
         buf = torch.empty(n_float, dtype=torch.float32, device=device)
-    if ticket is None or ticket.numel() < n_ticket:
+    if grow_ticket:
         ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
     cache[device] = (buf, ticket)
     return buf, ticket

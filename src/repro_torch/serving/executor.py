@@ -34,6 +34,7 @@ from __future__ import annotations
 import functools
 import itertools
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -49,7 +50,9 @@ from repro_torch.core.placement import MOVE, migrate, place_pools
 from repro_torch.core.plandiff import (diff_plans, plan_pools, pool_range,
                                        PlanDiff, PoolSpec)
 from repro_torch.core.repartition import pool_key
+from repro_torch.distributed import spmd
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.flash_attention import captured_launches
 from repro_torch.models import n_fragment_units, resolve_device, run_fragment
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.decode import (cache_len_for, decode_step,
@@ -127,6 +130,91 @@ def _extras_sig(extras: Optional[dict]) -> tuple:
                         for k, v in extras.items()))
 
 
+def graph_engages(cache: dict) -> bool:
+    """Whether a decode pool's step replays from a CUDA graph: its
+    batched cache is plain tensors on a CUDA device. A CPU cache, or a
+    DTensor one (an entry run under the sharding rules, whose step
+    replaces the cache's tensors), steps eagerly."""
+    return cache["pos"].device.type == "cuda" and not any(
+        spmd.is_dtensor(v) for v in cache.values())
+
+
+class StaticDecodeStep:
+    """A decode pool's model step on static buffers: ``decode_step`` on
+    the pool's batched cache and the (B, 1) int32 token buffer
+    ``tokens``, with the new ``pos`` and ``kv_pos`` copied back into the
+    cache, so that no storage of the cache moves between steps. Calling
+    it with the host's tokens returns (the argmax tokens (B,) on the
+    device, whether the step replayed a graph); ``logits`` holds the
+    step's (B, 1, V) logits until the next step.
+
+    Where :func:`graph_engages`, the first step after an eager one (which
+    grew the kernels' scratch, chose the cuBLAS algorithms and loaded the
+    libraries) is captured into a ``torch.cuda.CUDAGraph`` on a side
+    stream, and it and every later step replay it on the stream eager
+    launches use, so row 3's tickets are never shared by two launches in
+    flight. The graph reads the cache's rows as admissions left them.
+    A capture that raises (a host sync inside the step, say) is counted
+    in ``fallbacks``, and the pool steps eagerly from then on; the step
+    that tried runs eagerly, since a capture runs nothing."""
+
+    def __init__(self, params, cfg: ModelConfig, cache: dict):
+        self.params, self.cfg, self.cache = params, cfg, cache
+        pos = cache["pos"]
+        self.tokens = torch.zeros((pos.shape[0], 1), dtype=torch.int32,
+                                  device=pos.device)
+        self.engages = graph_engages(cache)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out: tuple = ()         # the captured step's outputs
+        self._tally = None            # its launches and scratch
+        self.logits: Optional[Tensor] = None
+        self.eager_steps = 0
+        self.replays = 0
+        self.fallbacks = 0
+
+    def _body(self) -> tuple[Tensor, Tensor]:
+        logits, new = decode_step(self.params, self.cfg, self.cache,
+                                  self.tokens)
+        for k, v in new.items():
+            if v is not self.cache[k]:
+                self.cache[k].copy_(v)
+        return logits, torch.argmax(logits[:, -1], dim=-1)
+
+    def _capture(self) -> None:
+        dev = self.tokens.device
+        try:
+            graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize(dev)
+            with captured_launches() as tally, torch.no_grad(), \
+                    torch.cuda.stream(torch.cuda.Stream(dev)):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = self._body()
+                finally:
+                    graph.capture_end()
+        except Exception as e:           # the pool keeps serving, eagerly
+            self.fallbacks += 1
+            print(f"decode step capture failed, stepping eagerly: {e!r}",
+                  file=sys.stderr)
+            return
+        self.graph, self._out, self._tally = graph, out, tally
+
+    def __call__(self, toks: np.ndarray) -> tuple[Tensor, bool]:
+        self.tokens.copy_(torch.from_numpy(toks))
+        if self.graph is None and self.engages and self.eager_steps \
+                and not self.fallbacks:
+            self._capture()
+        if self.graph is not None:
+            self.graph.replay()
+            self._tally.replayed()
+            self.replays += 1
+            self.logits, nxt = self._out
+            return nxt, True
+        self.logits, nxt = self._body()
+        self.eager_steps += 1
+        return nxt, False
+
+
 def shares_prefixes(cfg: ModelConfig) -> bool:
     """Whether a decode pool of ``cfg`` reuses prompt prefixes across
     requests from its paged KV arena: the dense family, and moe where
@@ -192,6 +280,7 @@ class FragmentInstance:
         self.kv_block_tokens = int(kv_block_tokens)
         self.kv: Optional[PagedKVCache] = None
         self._dc: Optional[dict] = None       # dense batched decode cache
+        self._step: Optional[StaticDecodeStep] = None   # its model step
         self._slots: list = []                # per-row sequence state
         self.decode_admits = 0
         self.decode_steps = 0
@@ -365,6 +454,7 @@ class FragmentInstance:
                                head_dim=self.cfg.head_dim_,
                                telemetry=self.telemetry)
         self._dc = dc
+        self._step = StaticDecodeStep(self._params, self.cfg, dc)
         self._slots = [None] * B
 
     @staticmethod
@@ -578,13 +668,13 @@ class FragmentInstance:
         if span is not None:
             self._phase(span, mark, "decode/step/prep")
             mark = tel.begin(cpu=True)
-        logits, self._dc = self._call_counted(
-            decode_step, self._params, self.cfg, self._dc,
-            torch.from_numpy(toks).to(dev), shape_key=("decode", B))
+        nxt, graphed = self._call_counted(self._step, toks,
+                                          shape_key=("decode", B))
         if span is not None:
-            self._phase(span, mark, "decode/step/forward")
+            self._phase(span, mark, "decode/step/forward",
+                        {"graph": graphed})
             mark = tel.begin()
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        nxt = nxt.cpu().numpy()
         if span is not None:
             self._phase(span, mark, "decode/step/tokens")
             mark = tel.begin()
@@ -650,6 +740,17 @@ class FragmentInstance:
     @property
     def decode_active(self) -> int:
         return sum(1 for s in self._slots if s)
+
+    @property
+    def decode_graph_steps(self) -> int:
+        """Decode steps that replayed the pool's CUDA graph."""
+        return self._step.replays if self._step else 0
+
+    @property
+    def decode_graph_fallbacks(self) -> int:
+        """Captures of the step that raised (the pool then steps
+        eagerly)."""
+        return self._step.fallbacks if self._step else 0
 
     @property
     def decode_free_slots(self) -> int:
@@ -809,6 +910,8 @@ class PoolService:
                     "decode_free_slots": inst.decode_free_slots,
                     "decode_admits": inst.decode_admits,
                     "decode_steps": inst.decode_steps,
+                    "decode_graph_steps": inst.decode_graph_steps,
+                    "decode_graph_fallbacks": inst.decode_graph_fallbacks,
                     "decode_tokens": inst.decode_tokens,
                     "prefill_exports": inst.prefill_exports,
                     "kv_handoffs_in": inst.kv_handoffs_in,

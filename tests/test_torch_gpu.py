@@ -1121,3 +1121,98 @@ def test_expert_parallel_on_the_card_equals_grouped(cuda):
     bf16 check, in bfloat16."""
     from repro_torch.distributed.ranks import spawn_ranks
     spawn_ranks(_ep_card_rank, 2, timeout=300)
+
+
+# ------------------------------------------ decode step replayed from a graph
+
+GRAPH_BATCH, GRAPH_CTX, GRAPH_STEPS = 16, 896, 48
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-1.7b"])
+def test_replayed_decode_step_equals_the_eager_one(cuda, arch):
+    """Two decode pools of one bf16 model at its published widths (cut
+    to 4 layers; olmoe at capacity factor 8, as the chat cell runs it),
+    batch 16 and an 896-slot context, driven in lockstep: one replays
+    its step from the CUDA graph it captures on its second step, the
+    other steps eagerly. Admissions fill every freed slot between steps,
+    streams retire, one is aborted, and after the capture a larger eager
+    decode-attention call grows the kernel's scratch under the graph.
+    Every token and every logit agree exactly, and both pools count the
+    same wrapper launches."""
+    import collections
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.plandiff import PoolSpec
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import init_params, n_fragment_units
+    from repro_torch.serving.executor import FragmentInstance
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=4, dtype="bfloat16")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    params = init_params(cfg, seed=0, device=cuda)
+    spec = PoolSpec(key=(cfg.name, 0, n_fragment_units(cfg)), share=1,
+                    batch=GRAPH_BATCH, n_instances=1)
+    pools = [FragmentInstance(params, cfg, spec, decode_ctx=GRAPH_CTX,
+                              kv_blocks=1024, kv_block_tokens=16)
+             for _ in range(2)]
+    on = torch.device("cuda", torch.cuda.current_device())
+    da._SCRATCH.pop(on, None)          # the pools' first step sizes it
+    for p in pools:
+        p._ensure_decode()
+    assert pools[0]._step.engages
+    pools[1]._step.engages = False                 # the eager twin
+    rng = np.random.RandomState(1)
+    queue = [(rng.randint(0, cfg.vocab_size, rng.randint(32, 400))
+              .astype(np.int32), int(rng.randint(6, 40)))
+             for _ in range(40)]
+    launches = [collections.Counter(), collections.Counter()]
+
+    def counted(i, fn, *args):
+        before = launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            launches[i][k] += v - before[k]
+        return out
+
+    out = [{}, {}]
+    rid, worst, aborted, grown = 0, 0.0, None, False
+    for step in range(GRAPH_STEPS):
+        while queue and pools[0].decode_free_slots:
+            toks, max_new = queue.pop(0)
+            rs = [counted(i, p.decode_admit, rid, "c", toks, max_new, ())
+                  for i, p in enumerate(pools)]
+            assert rs[0]["admitted"] and rs[0] == rs[1], rs
+            for i in (0, 1):
+                out[i][rid] = [rs[i]["tok"]]
+            rid += 1
+        if step == 10:
+            aborted = pools[0].resident_rids()[3]
+            assert all(p.decode_abort(aborted) for p in pools)
+        if step == 20:
+            old = da._SCRATCH[on][0]
+            q, k, v, qp, kp = _decode_case(cuda, torch.bfloat16, 64, 2048,
+                                           16, 8, 128, [2047] * 64, False)
+            da.decode_attention(q, k, v, qp, kp)
+            grown = da._SCRATCH[on][0] is not old
+        evs = [counted(i, p.decode_step_batch) for i, p in enumerate(pools)]
+        assert evs[0] == evs[1], step
+        for i in (0, 1):
+            for ev in evs[i]["events"]:
+                out[i][ev["rid"]].append(ev["tok"])
+        worst = max(worst, (pools[0]._step.logits.float()
+                            - pools[1]._step.logits.float()).abs()
+                    .max().item())
+    print(f"{arch}: {GRAPH_STEPS} steps, {rid} streams, largest logits "
+          f"difference replayed - eager {worst}")
+    assert grown and aborted is not None and rid > GRAPH_BATCH
+    assert out[0] == out[1]
+    assert worst == 0.0
+    assert pools[0].decode_graph_steps == GRAPH_STEPS - 1
+    assert pools[0].decode_graph_fallbacks == 0
+    assert pools[1].decode_graph_steps == 0
+    assert launches[0] == launches[1]
+    assert launches[0]["decode_attention"] >= GRAPH_STEPS * cfg.n_layers
